@@ -1,0 +1,103 @@
+"""Hand state between the JAX package and the port as numpy arrays.
+
+The parity tests feed the same arrays to both packages through these
+functions; they also move saved state across. Nothing here imports JAX:
+the JAX side is plain numpy (``np.asarray`` of a JAX array).
+
+* :func:`coo_from_numpy` / :func:`coo_to_numpy` — the padded
+  ``SparseCOO`` container, field for field (padding and capacity kept).
+* :func:`dia_from_numpy` / :func:`dia_to_numpy` — ``SparseDIA``.
+* :func:`prepared_dia_from_jax` — un-blocks either kernel layout of the JAX
+  ``PreparedDIA.data3`` (packed f32 ``(nblocks, K*block)`` or padded bf16
+  ``(nblocks, K_pad, block)``) into the port's ``(K, n)`` layout.
+
+bfloat16 arrays from JAX are numpy arrays of the ``ml_dtypes`` bfloat16
+type; they are moved bit for bit. On the way back bfloat16 tensors become
+float32 numpy arrays, which hold every bfloat16 value exactly.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from .core.coo import SparseCOO
+from .core.dia import SparseDIA
+from .ops.dia_stream import PreparedDIA
+
+__all__ = ["coo_from_numpy", "coo_to_numpy", "dia_from_numpy",
+           "dia_to_numpy", "prepared_dia_from_jax", "tensor_from_numpy",
+           "tensor_to_numpy"]
+
+Tensor = torch.Tensor
+
+
+def tensor_from_numpy(a, device=None) -> Tensor:
+    """numpy → tensor on ``device``, bfloat16 kept bit for bit."""
+    a = np.ascontiguousarray(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t if device is None else t.to(device)
+
+
+def tensor_to_numpy(t: Tensor) -> np.ndarray:
+    """tensor → host numpy (bfloat16 widened to float32)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.numpy()
+
+
+def coo_from_numpy(indices, vals, nnz: int, shape: Sequence[int],
+                   sort_order: Sequence[int] | None = None, *,
+                   device=None) -> SparseCOO:
+    """A :class:`SparseCOO` holding exactly these buffers."""
+    return SparseCOO(
+        indices=tensor_from_numpy(indices, device),
+        vals=tensor_from_numpy(vals, device), nnz=int(nnz),
+        shape=tuple(int(s) for s in shape),
+        sort_order=(tuple(int(d) for d in sort_order)
+                    if sort_order is not None else None))
+
+
+def coo_to_numpy(a: SparseCOO) -> tuple:
+    """``(indices, vals, nnz, shape, sort_order)`` with numpy buffers."""
+    return (tensor_to_numpy(a.indices), tensor_to_numpy(a.vals), int(a.nnz),
+            tuple(a.shape), a.sort_order)
+
+
+def dia_from_numpy(data, offsets: Sequence[int], shape: Sequence[int], *,
+                   device=None) -> SparseDIA:
+    return SparseDIA(data=tensor_from_numpy(data, device),
+                     offsets=tuple(int(o) for o in offsets),
+                     shape=tuple(int(s) for s in shape))
+
+
+def dia_to_numpy(dia) -> tuple:
+    """``(data, offsets, shape)`` of a :class:`SparseDIA` or
+    :class:`PreparedDIA`."""
+    return tensor_to_numpy(dia.data), tuple(dia.offsets), tuple(dia.shape)
+
+
+def prepared_dia_from_jax(data3, offsets: Sequence[int],
+                          shape: Sequence[int], block: int, *,
+                          device=None) -> PreparedDIA:
+    """The port's :class:`PreparedDIA` from a JAX ``PreparedDIA.data3``
+    (the inverse of the JAX ``prepare_dia`` re-blocking). Padding diagonals
+    and padding rows are dropped; the dtype is kept."""
+    data3 = np.asarray(data3)
+    n = int(shape[0])
+    K = len(offsets)
+    nblocks = data3.shape[0]
+    if data3.ndim == 2:                      # packed f32: (nblocks, K*block)
+        d3 = data3.reshape(nblocks, data3.shape[1] // block, block)
+    else:                                    # padded: (nblocks, K_pad, block)
+        d3 = data3
+    data = d3.swapaxes(0, 1).reshape(d3.shape[1], nblocks * block)[:K, :n]
+    return PreparedDIA(data=tensor_from_numpy(data, device),
+                       offsets=tuple(int(o) for o in offsets),
+                       shape=tuple(int(s) for s in shape))

@@ -1,0 +1,91 @@
+"""Format-dispatched SpMV/SpMM.
+
+Counterpart of :mod:`spsparse_tpu.ops.spmv_kernels`:
+
+* :func:`spmv_dia` — plain per-diagonal shifted multiply-add in the dtype
+  promoted from the operands (the JAX package's XLA lowering).
+* :func:`spmv_ell` — gather + row reduce over the ELL layout.
+* :func:`best_spmv` — routes each operand format to its fastest path:
+  :class:`SparseDIA` / :class:`PreparedDIA` go to kernel K1
+  (:func:`spmv_dia_stream`), which launches the CUDA kernel for CUDA
+  tensors and runs its plain version for CPU tensors.
+* :func:`best_spmm` — the same dispatch for a dense block ``X``.
+
+Operand formats of the JAX package that are not ported yet raise
+``NotImplementedError`` naming their ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..core.coo import as_tensor
+from ..core.dia import SparseDIA
+from ..core.structure import SparseELL
+from .dia_stream import PreparedDIA, spmv_dia_stream
+from .spmm import _gather_rows, spmm as _spmm_generic, spmv as _spmv_generic
+
+__all__ = ["spmv_dia", "spmv_ell", "best_spmv", "best_spmm"]
+
+Tensor = torch.Tensor
+
+# JAX operand types whose port is still queued (ROADMAP queue 1).
+_NOT_PORTED = {
+    "PreparedGeneral": "ROADMAP item 14 (ops/general.py)",
+    "PreparedShuffleSpMV": "ROADMAP item 18 (ops/spmv_shuffle.py)",
+    "SparseTiledCOO": "ROADMAP item 12 (core/tiled.py)",
+    "PreparedTiledDense": "ROADMAP item 13 (ops/pallas_tiled.py)",
+    "PreparedTiledRows": "ROADMAP item 13 (ops/pallas_tiled.py)",
+    "PreparedTiledWindow": "ROADMAP item 13 (ops/pallas_tiled_window.py)",
+    "SparseBSR": "ROADMAP item 12 (core/bsr.py)",
+}
+
+
+def _reject_unported(a) -> None:
+    item = _NOT_PORTED.get(type(a).__name__)
+    if item is not None:
+        raise NotImplementedError(
+            f"{type(a).__name__} operands are not ported yet: {item}")
+
+
+def spmv_dia(dia: SparseDIA, x: Tensor) -> Tensor:
+    """``y = A @ x`` for diagonal storage: ``y[i] += data[d,i] * x[i+off]``
+    over the in-range rows of each diagonal."""
+    n, m = dia.shape
+    x = as_tensor(x)
+    y = torch.zeros(n, dtype=torch.promote_types(dia.data.dtype, x.dtype),
+                    device=dia.device)
+    for d, off in enumerate(dia.offsets):
+        lo, hi = max(0, -off), min(n, m - off)
+        if hi > lo:
+            y[lo:hi] += dia.data[d, lo:hi] * x[lo + off:hi + off]
+    return y
+
+
+def spmv_ell(ell: SparseELL, x: Tensor) -> Tensor:
+    """Gather + row-reduce over the regular ELL layout."""
+    xg = _gather_rows(as_tensor(x), ell.cols.reshape(-1))
+    return (ell.vals * xg.reshape(ell.cols.shape)).sum(dim=1)
+
+
+def best_spmv(a, x: Tensor) -> Tensor:
+    """Format-dispatched SpMV. DIA operands go to kernel K1 (float32
+    result); ELL to :func:`spmv_ell`; CSR/COO to the generic CSR path."""
+    if isinstance(a, (SparseDIA, PreparedDIA)):
+        return spmv_dia_stream(a, x)
+    _reject_unported(a)
+    if isinstance(a, SparseELL):
+        return spmv_ell(a, x)
+    return _spmv_generic(a, x)
+
+
+def best_spmm(a, X: Tensor) -> Tensor:
+    """Format-dispatched SpMM ``Y = A @ X`` for a dense ``X (K, N)``. DIA
+    operands run :func:`spmv_dia` per column (the JAX package's XLA path);
+    CSR/COO/ELL the generic gather path."""
+    _reject_unported(a)
+    X = as_tensor(X)
+    if isinstance(a, SparseDIA):
+        return torch.stack([spmv_dia(a, X[:, c]) for c in range(X.shape[1])],
+                           dim=1)
+    return _spmm_generic(a, X)
