@@ -34,8 +34,9 @@ from .core import (
     to_ell,
     SparseDIA,
     to_dia,
+    default_device,
 )
 
-from . import backend, convert, core, io, ops, utils  # noqa: E402
+from . import backend, convert, core, io, ops, solvers, utils  # noqa: E402
 
 __version__ = "0.1.0"

@@ -1,12 +1,14 @@
 """Kernel build, load and device report for the CUDA kernels of the port.
 
 The hand-written Hopper kernels live in ``spsparse_torch/csrc/*.cu`` behind
-a plain C interface. They are compiled with ``nvcc`` into one shared
-library on first use and loaded with :mod:`ctypes`:
+a plain C interface. On first use each source is compiled by its own
+``nvcc`` process, all started together, and the objects are linked into one
+shared library, which is loaded with :mod:`ctypes`:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o spsparse_torch/_kernels/<hash>/libspsparse_kernels.so
-         spsparse_torch/csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC
+         -c spsparse_torch/csrc/<name>.cu -o <name>.o       (one per source)
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared
+         -o spsparse_torch/_kernels/<hash>/libspsparse_kernels.so *.o
 
 The build directory is keyed by a hash of the sources and flags, so an
 edited kernel is rebuilt and an unchanged one is loaded as it is. Nothing is
@@ -37,8 +39,8 @@ __all__ = ["CSRC_DIR", "KERNEL_DIR", "NVCC_FLAGS", "find_nvcc", "build",
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 KERNEL_DIR = Path(__file__).resolve().parent / "_kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 _LIB_NAME = "libspsparse_kernels.so"
 
 _P = ctypes.c_void_p
@@ -46,12 +48,16 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _F = ctypes.c_float
 
-# C signatures (csrc/dia.cu). Pointers and the stream are c_void_p so that
+# C signatures (csrc/*.cu). Pointers and the stream are c_void_p so that
 # ctypes never truncates a 64-bit address to a 32-bit int.
 _SIGNATURES = {
     "sps_dia_spmv": [_I, _P, _LL, _LL, _LL, _I, _P, _P, _P, _F, _P],
     "sps_dia_chain": [_I, _P, _LL, _LL, _I, _P, _P, _P, _I, _F, _P],
     "sps_dia_max_diags": [],
+    "sps_dia_mrhs": [_I, _P, _LL, _LL, _LL, _I, _P, _I, _P, _LL, _P, _LL,
+                     _P],
+    "sps_dia_cg": [_I, _P, _LL, _LL, _I, _P, _F, _P, _P, _P, _P, _P, _P, _P,
+                   _LL, _P, _P, _I, _P],
 }
 
 
@@ -79,9 +85,10 @@ def _source_hash() -> str:
 def build(verbose: bool = False) -> Path:
     """Compile ``csrc/*.cu`` into the hash-keyed library (no-op if built).
 
-    Raises ``RuntimeError`` when ``nvcc`` is missing or the compile fails.
-    The library is written to a temporary name and renamed into place, so
-    a build cut off halfway never leaves a library that loads.
+    The sources compile in parallel, one ``nvcc`` each. Raises
+    ``RuntimeError`` when ``nvcc`` is missing or a compile fails. The library
+    is linked in a temporary directory and renamed into place, so a build
+    cut off halfway never leaves a library that loads.
     """
     out_dir = KERNEL_DIR / _source_hash()
     lib = out_dir / _LIB_NAME
@@ -93,19 +100,33 @@ def build(verbose: bool = False) -> Path:
             "spsparse_torch: a CUDA tensor needs a kernel, but nvcc was not "
             "found on PATH or at /usr/local/cuda/bin/nvcc")
     out_dir.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in sorted(CSRC_DIR.glob("*.cu"))]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, *cu]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            "spsparse_torch: nvcc failed (exit %d)\n%s\n%s"
-            % (proc.returncode, " ".join(cmd), proc.stderr))
-    if verbose:
-        print(proc.stderr, end="")
-    os.replace(tmp, lib)
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp_dir:
+        objs, procs = [], []
+        for src in sorted(CSRC_DIR.glob("*.cu")):
+            obj = os.path.join(tmp_dir, src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", str(src),
+                   "-o", obj]
+            objs.append(obj)
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        logs = []
+        for cmd, proc in procs:
+            out, err = proc.communicate()
+            logs.append((cmd, proc.returncode, out, err))
+        tmp_lib = os.path.join(tmp_dir, _LIB_NAME)
+        link = [nvcc, *ARCH_FLAGS, "-shared", "-o", tmp_lib, *objs]
+        if all(log[1] == 0 for log in logs):
+            proc = subprocess.run(link, capture_output=True, text=True)
+            logs.append((link, proc.returncode, proc.stdout, proc.stderr))
+        for cmd, code, _, err in logs:
+            if code != 0:
+                raise RuntimeError(
+                    "spsparse_torch: nvcc failed (exit %d)\n%s\n%s"
+                    % (code, " ".join(cmd), err))
+            if verbose:
+                print(err, end="")
+        os.replace(tmp_lib, lib)
     return lib
 
 

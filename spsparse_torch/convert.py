@@ -11,6 +11,10 @@ the JAX side is plain numpy (``np.asarray`` of a JAX array).
   ``PreparedDIA.data3`` (packed f32 ``(nblocks, K*block)`` or padded bf16
   ``(nblocks, K_pad, block)``) into the port's ``(K, n)`` layout.
 
+Host arrays go to ``device``, the card by default
+(:func:`spsparse_torch.default_device`); the CPU tests pass
+``device="cpu"``.
+
 bfloat16 arrays from JAX are numpy arrays of the ``ml_dtypes`` bfloat16
 type; they are moved bit for bit. On the way back bfloat16 tensors become
 float32 numpy arrays, which hold every bfloat16 value exactly.
@@ -24,6 +28,7 @@ import numpy as np
 import torch
 
 from .core.coo import SparseCOO
+from .core.device import resolve_device
 from .core.dia import SparseDIA
 from .ops.dia_stream import PreparedDIA
 
@@ -35,13 +40,16 @@ Tensor = torch.Tensor
 
 
 def tensor_from_numpy(a, device=None) -> Tensor:
-    """numpy → tensor on ``device``, bfloat16 kept bit for bit."""
+    """numpy → tensor on ``device`` (the card by default), bfloat16 kept
+    bit for bit."""
     a = np.ascontiguousarray(a)
+    if not a.flags.writeable:        # e.g. a view of a JAX array
+        a = a.copy()
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
     else:
         t = torch.from_numpy(a)
-    return t if device is None else t.to(device)
+    return t.to(resolve_device(device))
 
 
 def tensor_to_numpy(t: Tensor) -> np.ndarray:

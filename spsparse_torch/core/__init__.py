@@ -10,6 +10,7 @@ from .errors import (
     ROW_MAJOR,
     COL_MAJOR,
 )
+from .device import default_device, resolve_device
 from .coo import SparseCOO, CooBuilder, coo_matrix, coo_vector
 from .consolidate import (
     consolidate,
@@ -32,7 +33,7 @@ from .dia import SparseDIA, to_dia, dia_to_coo
 __all__ = [
     "DuplicatePolicy", "SpSparseError", "set_error_handler",
     "set_dump_stack_on_error", "spsparse_error",
-    "isnone", "ROW_MAJOR", "COL_MAJOR",
+    "isnone", "ROW_MAJOR", "COL_MAJOR", "default_device", "resolve_device",
     "SparseCOO", "CooBuilder", "coo_matrix", "coo_vector",
     "consolidate", "sorted_permutation", "merge_sorted_entries",
     "filter_compact", "Consolidated",

@@ -20,9 +20,11 @@ keeping it on the host saves a device round trip on every size query.
 Capacities computed automatically are rounded up to powers of two
 (:func:`round_up_pow2`), as in the JAX package, so the two agree on ``cap``.
 
-Every constructor takes an explicit ``device=``; nothing is moved to CUDA
-implicitly. Tensors passed in stay where they are unless ``device`` says
-otherwise; host data (numpy, lists) goes to ``device`` or the CPU.
+Every constructor takes ``device=``. Host data (numpy, lists, a builder's
+buffers) goes to ``device``, which defaults to the card
+(:func:`spsparse_torch.default_device`); without CUDA that default raises,
+so CPU callers pass ``device="cpu"``. Tensors passed in stay where they are
+unless ``device`` says otherwise.
 """
 
 from __future__ import annotations
@@ -33,11 +35,12 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
+from .device import resolve_device
 from .errors import DuplicatePolicy, SpSparseError, spsparse_error
 
 __all__ = ["SparseCOO", "CooBuilder", "coo_matrix", "coo_vector",
            "default_index_dtype", "round_up_pow2", "as_tensor",
-           "numpy_dtype"]
+           "operand_tensor", "numpy_dtype"]
 
 Tensor = torch.Tensor
 DeviceLike = Any
@@ -62,9 +65,17 @@ def numpy_dtype(dtype) -> np.dtype:
 
 def as_tensor(x, device: DeviceLike = None) -> Tensor:
     """Tensor view of ``x``: a tensor stays where it is unless ``device``
-    is given; host data goes to ``device`` (CPU by default)."""
+    is given; host data goes to ``device`` (the card by default)."""
     if isinstance(x, Tensor):
         return x if device is None else x.to(device)
+    return torch.as_tensor(np.asarray(x), device=resolve_device(device))
+
+
+def operand_tensor(x, device: DeviceLike) -> Tensor:
+    """``x`` for an op whose operand lies on ``device``: a tensor stays
+    where it is; host data goes to ``device``, not to the default."""
+    if isinstance(x, Tensor):
+        return x
     return torch.as_tensor(np.asarray(x), device=device)
 
 
@@ -139,7 +150,7 @@ class SparseCOO:
         """The padding index tuple: one-past-the-end in every dimension."""
         dtype = dtype or default_index_dtype(shape)
         return torch.tensor([int(s) for s in shape], dtype=dtype,
-                            device=device)
+                            device=resolve_device(device))
 
     @classmethod
     def empty(cls, shape: Sequence[int], cap: int, dtype=torch.float32,
@@ -147,6 +158,7 @@ class SparseCOO:
         """An all-padding array with ``nnz == 0`` and the given capacity."""
         shape = tuple(int(s) for s in shape)
         cap = max(int(cap), 1)
+        device = resolve_device(device)
         index_dtype = index_dtype or default_index_dtype(shape)
         if not isinstance(dtype, torch.dtype):
             dtype = torch.from_numpy(np.zeros(0, numpy_dtype(dtype))).dtype
@@ -355,7 +367,7 @@ class SparseCOO:
         from ..ops.spmm import spmm, spmv
         from .structure import to_csr
 
-        other = as_tensor(other)
+        other = operand_tensor(other, self.device)
         csr = to_csr(self)
         return spmv(csr, other) if other.ndim == 1 else spmm(csr, other)
 
@@ -396,7 +408,7 @@ class CooBuilder:
 
     Entries accumulate in amortised-O(1) numpy buffers with vectorised
     bounds checks; ``build(device=...)`` produces a :class:`SparseCOO` on
-    the requested device.
+    the requested device, the card by default.
     """
 
     def __init__(self, shape: Sequence[int], dtype=np.float32,
@@ -464,7 +476,7 @@ class CooBuilder:
         return SparseCOO.from_arrays(
             torch.from_numpy(self._idx[: self._n].copy()),
             torch.from_numpy(self._vals[: self._n].copy()),
-            self.shape, cap=cap, check=False, device=device)
+            self.shape, cap=cap, check=False, device=resolve_device(device))
 
 
 def coo_matrix(shape: Sequence[int], dtype=np.float32) -> CooBuilder:

@@ -29,29 +29,18 @@
 // per-launch gaps; that is later work. The TPU kernel's |offset| <= 128 limit
 // came from its fixed VMEM halo and does not apply: columns are bounds-checked.
 //
-// Offsets travel in the kernel-parameter struct (at most SPS_MAX_DIAGS).
-// Every entry point returns cudaGetLastError() after its launches.
+// Offsets travel in the kernel-parameter struct (at most SPS_MAX_DIAGS;
+// dia_common.cuh). Every entry point returns cudaGetLastError() after its
+// launches.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstring>
-
-#define SPS_MAX_DIAGS 128
+#include "dia_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-
-struct DiaOffsets {
-  int k;
-  int off[SPS_MAX_DIAGS];
-};
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
+using sps::DiaOffsets;
+using sps::kThreads;
+using sps::make_offsets;
+using sps::to_f32;
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -74,7 +63,7 @@ cudaError_t launch(int dtype, const void* data, long long ld, long long n,
                    long long m, const DiaOffsets& offs, const float* x,
                    float* y, float scale, cudaStream_t stream) {
   if (n == 0) return cudaSuccess;
-  const unsigned grid = (unsigned)((n + kThreads - 1) / kThreads);
+  const unsigned grid = sps::grid_for(n);
   if (dtype == 0) {
     dia_spmv_kernel<float><<<grid, kThreads, 0, stream>>>(
         static_cast<const float*>(data), ld, n, m, offs, x, y, scale);
@@ -85,14 +74,6 @@ cudaError_t launch(int dtype, const void* data, long long ld, long long n,
     return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
-}
-
-bool make_offsets(int K, const void* offsets, DiaOffsets* out) {
-  if (K < 0 || K > SPS_MAX_DIAGS) return false;
-  out->k = K;
-  std::memset(out->off, 0, sizeof(out->off));
-  if (K) std::memcpy(out->off, offsets, sizeof(int) * (size_t)K);
-  return true;
 }
 
 }  // namespace

@@ -116,7 +116,7 @@ def load_netcdf(path, vname: str, *, rank: int | None = None,
                 device=None) -> SparseCOO:
     """Read one sparse array written by :func:`save_netcdf`, by the JAX
     package, or by the reference library into a classic-format file, onto
-    ``device`` (CPU by default)."""
+    ``device`` (the card by default)."""
     return _read_array(_read_any(path), vname, rank=rank, shape=shape,
                        alloc=alloc, dtype=dtype, cap=cap, device=device)
 
@@ -172,7 +172,7 @@ def ncio_spsparse(ncio: NcIO, A: SparseCOO | None, alloc: bool, vname: str,
                   *, rank: int | None = None, dtype=np.float64,
                   cap: int | None = None):
     """Reference-parity entry point: queue a write of ``A``, or a read into
-    ``ncio.results[vname]`` (on ``ncio.device``)."""
+    ``ncio.results[vname]`` (on ``ncio.device``, the card by default)."""
     if ncio.rw == "w":
         ncio += (lambda: _write_array(ncio.nc, A, vname))
         return None

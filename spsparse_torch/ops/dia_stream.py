@@ -17,7 +17,18 @@ diagonal). The JAX package re-blocks the data into ``(nblocks, K*block)``
 (f32) or ``(nblocks, K_pad, block)`` (bf16) for the TPU's DMA engine;
 :func:`spsparse_torch.convert.prepared_dia_from_jax` un-blocks either.
 
-The kernel's custom VJP in the JAX package is not ported yet.
+Autograd. The JAX package gives the kernel a custom VJP
+(``pallas_dia.py:127-196``) whose backward is XLA code, not a Pallas kernel;
+its port is :class:`DiaSpmmFunction`, whose backward is plain PyTorch, the
+faithful counterpart. For ``y = A x`` and a cotangent ``g``:
+
+    d_x[i + off_k]  += data[k, i] * g[i]          (A^T g)
+    d_data[k, i]     = g[i] * x[i + off_k]        (0 where the column is out
+                                                   of range)
+
+The same Function serves K3 (:mod:`spsparse_torch.ops.dia_mrhs`), with one
+row of ``X`` per right-hand side and ``d_data`` summed over them. Gradients
+reach the ``SparseDIA.data`` that :func:`prepare_dia` was given.
 """
 
 from __future__ import annotations
@@ -31,7 +42,7 @@ from .. import backend
 from ..core.dia import SparseDIA
 
 __all__ = ["PreparedDIA", "prepare_dia", "spmv_dia_stream",
-           "spmv_dia_stream_reference", "MAX_DIAGS"]
+           "spmv_dia_stream_reference", "DiaSpmmFunction", "MAX_DIAGS"]
 
 Tensor = torch.Tensor
 
@@ -114,15 +125,8 @@ def launch_args(prep: PreparedDIA):
     return _DTYPE_CODE[prep.data.dtype], offs
 
 
-def spmv_dia_stream(dia, x: Tensor) -> Tensor:
-    """``y = A @ x`` (float32) for a :class:`SparseDIA` (prepared on the
-    fly in float32) or a :class:`PreparedDIA`.
-
-    CUDA tensors launch kernel K1 (``spmv_dia_stream.launches`` counts the
-    launches); CPU tensors take :func:`spmv_dia_stream_reference`.
-    """
-    prep = dia if isinstance(dia, PreparedDIA) else prepare_dia(dia)
-    x = check_operands(prep, x)
+def _spmv(prep: PreparedDIA, x: Tensor) -> Tensor:
+    """K1 on a CUDA ``x``, its plain version on a CPU ``x``."""
     if x.device.type == "cpu":
         return spmv_dia_stream_reference(prep, x)
     n, m = prep.shape
@@ -138,6 +142,64 @@ def spmv_dia_stream(dia, x: Tensor) -> Tensor:
     backend.check(err, "sps_dia_spmv")
     spmv_dia_stream.launches += 1
     return y
+
+
+def dia_vjp(prep: PreparedDIA, X: Tensor, G: Tensor):
+    """Cotangents of ``Y = (A X^T)^T`` for ``X (R, m)`` and ``G (R, n)``:
+    ``(d_data (K, n), d_X (R, m))`` in float32 (plain PyTorch, as the JAX
+    package's backward is XLA code)."""
+    n, m = prep.shape
+    G = G.to(torch.float32)
+    d_x = torch.zeros(X.shape, dtype=torch.float32, device=X.device)
+    d_data = torch.zeros(prep.data.shape, dtype=torch.float32,
+                         device=X.device)
+    for k, off in enumerate(prep.offsets):
+        lo, hi = max(0, -off), min(n, m - off)
+        if hi > lo:
+            d_x[:, lo + off:hi + off] += prep.data[k, lo:hi].float() * G[
+                :, lo:hi]
+            d_data[k, lo:hi] = (G[:, lo:hi] * X[:, lo + off:hi + off]).sum(0)
+    return d_data, d_x
+
+
+class DiaSpmmFunction(torch.autograd.Function):
+    """``Y (R, n) = (A X^T)^T`` through ``fwd`` (kernel K1 or K3, or a
+    plain version on the CPU), differentiable in ``data`` and ``X``."""
+
+    @staticmethod
+    def forward(ctx, data, X, prep, fwd):
+        ctx.save_for_backward(data, X)
+        ctx.prep = prep
+        return fwd(prep, X)
+
+    @staticmethod
+    def backward(ctx, G):
+        data, X = ctx.saved_tensors
+        d_data, d_x = dia_vjp(ctx.prep, X, G)
+        return (d_data.to(data.dtype) if ctx.needs_input_grad[0] else None,
+                d_x.to(X.dtype) if ctx.needs_input_grad[1] else None,
+                None, None)
+
+
+def needs_grad(prep: PreparedDIA, x: Tensor) -> bool:
+    return torch.is_grad_enabled() and (prep.data.requires_grad
+                                        or x.requires_grad)
+
+
+def spmv_dia_stream(dia, x: Tensor) -> Tensor:
+    """``y = A @ x`` (float32) for a :class:`SparseDIA` (prepared on the
+    fly in float32) or a :class:`PreparedDIA`; differentiable in the
+    diagonals and in ``x``.
+
+    CUDA tensors launch kernel K1 (``spmv_dia_stream.launches`` counts the
+    launches); CPU tensors take :func:`spmv_dia_stream_reference`.
+    """
+    prep = dia if isinstance(dia, PreparedDIA) else prepare_dia(dia)
+    x = check_operands(prep, x)
+    if not needs_grad(prep, x):
+        return _spmv(prep, x)
+    return DiaSpmmFunction.apply(prep.data, x[None, :], prep,
+                                 lambda p, X: _spmv(p, X[0])[None, :])[0]
 
 
 spmv_dia_stream.launches = 0

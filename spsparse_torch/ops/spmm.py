@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from ..core.coo import SparseCOO, as_tensor
+from ..core.coo import SparseCOO, operand_tensor
 from ..core.errors import spsparse_error
 from ..core.structure import SparseCSR, SparseELL, to_csr
 from ..utils.trace import traced
@@ -61,7 +61,7 @@ def spmv(A, x, *, transpose: bool = False, filter_nan: bool = False) -> Tensor:
     """``y = A^(T?) @ x`` for a dense vector ``x``; returns a dense vector
     in the dtype promoted from ``A`` and ``x``. Accepts :class:`SparseCOO`,
     :class:`SparseCSR` or :class:`SparseELL` (ELL ignores ``transpose``)."""
-    x = as_tensor(x)
+    x = operand_tensor(x, A.vals.device)
     if isinstance(A, SparseELL):
         if transpose:
             raise NotImplementedError("transpose SpMV on ELL: convert first")
@@ -84,7 +84,7 @@ def spmm(A, X, *, transpose: bool = False, filter_nan: bool = False,
          accum_dtype=None) -> Tensor:
     """``Y = A^(T?) @ X`` for a dense block ``X (K, N)``; returns ``(I, N)``.
     ``accum_dtype`` forces the accumulation precision."""
-    X = as_tensor(X)
+    X = operand_tensor(X, A.vals.device)
     if X.ndim == 1:
         return spmv(A, X, transpose=transpose, filter_nan=filter_nan)
     if isinstance(A, SparseELL):

@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from ..core.coo import as_tensor
+from ..core.coo import operand_tensor
 from ..core.dia import SparseDIA
 from ..core.structure import SparseELL
 from .dia_stream import PreparedDIA, spmv_dia_stream
@@ -52,7 +52,7 @@ def spmv_dia(dia: SparseDIA, x: Tensor) -> Tensor:
     """``y = A @ x`` for diagonal storage: ``y[i] += data[d,i] * x[i+off]``
     over the in-range rows of each diagonal."""
     n, m = dia.shape
-    x = as_tensor(x)
+    x = operand_tensor(x, dia.device)
     y = torch.zeros(n, dtype=torch.promote_types(dia.data.dtype, x.dtype),
                     device=dia.device)
     for d, off in enumerate(dia.offsets):
@@ -64,7 +64,8 @@ def spmv_dia(dia: SparseDIA, x: Tensor) -> Tensor:
 
 def spmv_ell(ell: SparseELL, x: Tensor) -> Tensor:
     """Gather + row-reduce over the regular ELL layout."""
-    xg = _gather_rows(as_tensor(x), ell.cols.reshape(-1))
+    xg = _gather_rows(operand_tensor(x, ell.vals.device),
+                      ell.cols.reshape(-1))
     return (ell.vals * xg.reshape(ell.cols.shape)).sum(dim=1)
 
 
@@ -84,7 +85,8 @@ def best_spmm(a, X: Tensor) -> Tensor:
     operands run :func:`spmv_dia` per column (the JAX package's XLA path);
     CSR/COO/ELL the generic gather path."""
     _reject_unported(a)
-    X = as_tensor(X)
+    X = operand_tensor(X, a.vals.device if isinstance(a, SparseELL)
+                       else a.device)
     if isinstance(a, SparseDIA):
         return torch.stack([spmv_dia(a, X[:, c]) for c in range(X.shape[1])],
                            dim=1)

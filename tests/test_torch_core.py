@@ -28,7 +28,7 @@ def build_both(shape, idx, vals, dtype=np.float64):
     if len(vals):
         jb.add_many(idx, vals)
         tb.add_many(idx, vals)
-    return jb.build(), tb.build()
+    return jb.build(), tb.build(device="cpu")
 
 
 def random_entries(rng, shape, n, *, dup=True, zeros=True, nans=False):
@@ -97,7 +97,7 @@ def test_bounds_raise_in_both(bad):
     with pytest.raises(jsp.SpSparseError):
         jsp.SparseCOO.from_arrays(bad, [1.0], (2, 4))
     with pytest.raises(tsp.SpSparseError):
-        tsp.SparseCOO.from_arrays(bad, [1.0], (2, 4))
+        tsp.SparseCOO.from_arrays(bad, [1.0], (2, 4), device="cpu")
     b = tsp.CooBuilder((2, 4))
     with pytest.raises(tsp.SpSparseError):
         b.add_many(np.asarray(bad), [1.0])
@@ -117,7 +117,8 @@ def test_builder_caps_and_padding(n):
 
 
 def test_with_capacity_shrink_below_nnz_raises():
-    t = tsp.SparseCOO.from_arrays([[0, 0], [1, 1]], [1.0, 2.0], (2, 2))
+    t = tsp.SparseCOO.from_arrays([[0, 0], [1, 1]], [1.0, 2.0], (2, 2),
+                                  device="cpu")
     with pytest.raises(tsp.SpSparseError):
         t.with_capacity(1)
 
@@ -126,12 +127,13 @@ def test_from_dense_matches():
     rng = np.random.default_rng(3)
     dense = np.where(rng.random((6, 5)) < 0.3, rng.uniform(-1, 1, (6, 5)), 0)
     assert_same_coo(jsp.SparseCOO.from_dense(dense),
-                    tsp.SparseCOO.from_dense(dense), exact_vals=True)
+                    tsp.SparseCOO.from_dense(dense, device="cpu"),
+                    exact_vals=True)
 
 
 def test_int64_indices_for_huge_extent():
     t = tsp.SparseCOO.from_arrays([[0, 2**31]], [1.0], (2, 2**31 + 1),
-                                  cap=2)
+                                  cap=2, device="cpu")
     assert t.index_dtype == torch.int64
     assert t.indices[1].tolist() == [2, 2**31 + 1]
 
@@ -147,7 +149,7 @@ def golden_array(entries=ENTRIES, shape=(2, 4)):
     b = tsp.CooBuilder(shape, dtype=np.float64)
     for idx, v in entries:
         b.add(idx, v)
-    return b.build()
+    return b.build(device="cpu")
 
 
 @pytest.mark.parametrize("order,rows,cols,vals,begins", [
@@ -192,7 +194,8 @@ def test_zero_nan_golden():
 def test_noop_when_sorted_and_empty():
     c = golden_array().consolidate((0, 1))
     assert c.consolidate((0, 1)) is c
-    e = tsp.consolidate(tsp.SparseCOO.empty((3, 3), cap=8), (0, 1))
+    e = tsp.consolidate(tsp.SparseCOO.empty((3, 3), cap=8, device="cpu"),
+                        (0, 1))
     assert e.nnz == 0 and e.sort_order == (0, 1) and e.cap == 8
 
 
@@ -350,7 +353,7 @@ def test_to_dia_and_back_match_jax(offsets):
 
 
 def test_to_dia_off_band_raises():
-    t = tsp.SparseCOO.from_arrays([[0, 3]], [1.0], (4, 4))
+    t = tsp.SparseCOO.from_arrays([[0, 3]], [1.0], (4, 4), device="cpu")
     with pytest.raises(ValueError):
         tsp.to_dia(t, (0, 1))
 
@@ -390,3 +393,69 @@ def test_matmul_with_dense_operand(rhs_shape):
                                tensor_to_numpy(t.to_dense()) @ X, rtol=1e-12)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         t @ t
+
+
+# ----------------------------------------------------------------------
+# Constructors from host data default to the card
+# ----------------------------------------------------------------------
+def test_default_device_is_cuda():
+    assert tsp.default_device() == torch.device("cuda")
+
+
+def _host_constructors(tmp_path):
+    from spsparse_torch.convert import dia_from_numpy, tensor_from_numpy
+    from spsparse_torch.core.coo import as_tensor
+    from spsparse_torch.io import load_netcdf, save_netcdf
+
+    b = tsp.CooBuilder((3, 3))
+    b.add((0, 1), 2.0)
+    path = str(tmp_path / "a.nc")
+    save_netcdf(path, {"A": b.build(device="cpu")})
+    return {
+        "build": lambda **kw: b.build(**kw),
+        "from_arrays": lambda **kw: tsp.SparseCOO.from_arrays(
+            [[0, 1]], [2.0], (3, 3), **kw),
+        "from_dense": lambda **kw: tsp.SparseCOO.from_dense(np.eye(3), **kw),
+        "empty": lambda **kw: tsp.SparseCOO.empty((3, 3), 4, **kw),
+        "sentinel_index": lambda **kw: tsp.SparseCOO.sentinel_index(
+            (3, 3), **kw),
+        "as_tensor": lambda **kw: as_tensor([1.0, 2.0], **kw),
+        "tensor_from_numpy": lambda **kw: tensor_from_numpy(np.ones(3), **kw),
+        "dia_from_numpy": lambda **kw: dia_from_numpy(
+            np.ones((1, 3), np.float32), (0,), (3, 3), **kw),
+        "load_netcdf": lambda **kw: load_netcdf(path, "A", **kw),
+    }
+
+
+HOST_CONSTRUCTORS = ["build", "from_arrays", "from_dense", "empty",
+                     "sentinel_index", "as_tensor", "tensor_from_numpy",
+                     "dia_from_numpy", "load_netcdf"]
+
+
+@pytest.mark.parametrize("ctor", HOST_CONSTRUCTORS)
+def test_host_constructor_without_device_raises_without_cuda(ctor, tmp_path):
+    fn = _host_constructors(tmp_path)[ctor]
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        fn()
+
+
+@pytest.mark.parametrize("ctor", HOST_CONSTRUCTORS)
+def test_host_constructor_with_device_cpu(ctor, tmp_path):
+    out = _host_constructors(tmp_path)[ctor](device="cpu")
+    tensors = [out] if isinstance(out, torch.Tensor) else [
+        getattr(out, f) for f in ("indices", "vals", "data")
+        if hasattr(out, f)]
+    assert all(t.device.type == "cpu" for t in tensors)
+
+
+def test_tensors_stay_and_ops_follow_their_operand():
+    a = tsp.SparseCOO.from_arrays(torch.tensor([[0, 1], [2, 2]]),
+                                  torch.tensor([2.0, 3.0]), (3, 3))
+    assert a.device.type == "cpu"
+    y = a @ [1.0, 1.0, 1.0]              # host x follows the operand
+    assert y.device.type == "cpu" and y.tolist() == [2.0, 0.0, 3.0]
+    from spsparse_torch.ops import spmv_dia
+    d = tsp.to_dia(a)
+    assert spmv_dia(d, [1.0, 1.0, 1.0]).device.type == "cpu"

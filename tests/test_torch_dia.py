@@ -36,7 +36,7 @@ def banded(rng, n, offsets):
 
 def both(data, offsets, n):
     return (JDIA(data=jnp.asarray(data), offsets=offsets, shape=(n, n)),
-            dia_from_numpy(data, offsets, (n, n)))
+            dia_from_numpy(data, offsets, (n, n), device="cpu"))
 
 
 K1_CASES = {
@@ -85,7 +85,7 @@ def test_prepared_layout_round_trips_jax(dtype, n, block):
     jp = j_prepare(jd, block=block, dtype=getattr(jnp, dtype))
     tp = prepare_dia(td, dtype=getattr(torch, dtype))
     from_jax = prepared_dia_from_jax(np.asarray(jp.data3), jp.offsets,
-                                     jp.shape, block)
+                                     jp.shape, block, device="cpu")
     assert from_jax.data.dtype == tp.data.dtype
     assert torch.equal(from_jax.data, tp.data)
     assert from_jax.offsets == tp.offsets and from_jax.shape == tp.shape
@@ -95,7 +95,7 @@ def test_best_spmv_routes_dia_to_k1_plain_on_cpu():
     rng = np.random.default_rng(12)
     n = 300
     data, offs = banded(rng, n, [-4, 0, 3])
-    td = dia_from_numpy(data, offs, (n, n))
+    td = dia_from_numpy(data, offs, (n, n), device="cpu")
     x = torch.from_numpy(rng.uniform(-1, 1, n).astype(np.float32))
     ref = spmv_dia_stream_reference(prepare_dia(td), x)
     before = spmv_dia_stream.launches

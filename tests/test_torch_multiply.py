@@ -24,7 +24,7 @@ def build_both(shape, idx, vals):
     if len(vals):
         jb.add_many(idx, vals)
         tb.add_many(idx, vals)
-    return jb.build(), tb.build()
+    return jb.build(), tb.build(device="cpu")
 
 
 def random_both(rng, shape, nnz):

@@ -42,7 +42,7 @@ def build(pkg, shape, idx, vals, times=1):
     b = pkg.CooBuilder(shape, dtype=np.float32)
     for _ in range(times):
         b.add_many(idx, vals)
-    return b.build()
+    return b.build(device="cpu") if pkg is tsp else b.build()
 
 
 def assert_same(j, t, rtol=1e-6):
@@ -118,7 +118,7 @@ def test_netcdf_files_cross_load(slice_run, writer, tmp_path):
     for name in ("P", "A"):
         want = slice_run[writer][name].to_lists()
         jl = j_load(path, name, rank=2, dtype=np.float32)
-        tl = t_load(path, name, rank=2, dtype=np.float32)
+        tl = t_load(path, name, rank=2, dtype=np.float32, device="cpu")
         assert jl.to_lists() == want
         assert tl.to_lists() == want
         assert tl.shape == jl.shape and tl.cap == jl.cap
@@ -128,4 +128,4 @@ def test_netcdf_hdf5_raises_not_ported(tmp_path):
     path = tmp_path / "x.nc"
     path.write_bytes(b"\x89HDF\r\n\x1a\n" + b"\0" * 64)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_load(str(path), "A")
+        t_load(str(path), "A", device="cpu")

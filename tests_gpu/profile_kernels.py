@@ -1,0 +1,97 @@
+#!/usr/bin/env python3
+"""Device time of each CUDA kernel of the port at the shapes of chip_smoke.py.
+
+    python3 tests_gpu/profile_kernels.py
+
+Builds the banded benchmark matrix ``B`` (n = 2**20, offsets -5..5, f32,
+values from ``default_rng(0)``) and ``S = (B + B^T)/2`` as ``chip_smoke.py``
+does, runs each wrapper (and the library calls that ``chip_smoke.py`` uses
+as yardsticks) 10 times under ``torch.profiler``, and prints one JSON line
+per workload: the CUDA kernels it ran, their count and device time, and the
+device time per call. Needs one CUDA card.
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+import chip_smoke as cs  # noqa: E402
+import spsparse_torch as sp  # noqa: E402
+from spsparse_torch.ops import (cg_solve_dia, prepare_dia,  # noqa: E402
+                                spmm_dia_mrhs, spmv_dia_chain,
+                                spmv_dia_stream)
+
+CALLS = 10
+
+
+def device_kernels(prof) -> list[dict]:
+    """CUDA kernel events of a profile, by name."""
+    out = []
+    for e in prof.key_averages():
+        if "CUDA" not in str(getattr(e, "device_type", "")):
+            continue
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = e.cuda_time_total
+        out.append({"kernel": e.key[:120], "count": e.count,
+                    "device_us": us})
+    return out
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("profile_kernels: needs a CUDA card", file=sys.stderr)
+        return 1
+    dev, n = "cuda", cs.N
+    smi = cs.nvidia_smi_line()
+    band = cs.band_of(n)
+    B = sp.SparseDIA(data=torch.from_numpy(band.T.copy()).to(dev),
+                     offsets=tuple(range(-cs.BAND, cs.BAND + 1)),
+                     shape=(n, n))
+    prep_s = cs.phase_spd(torch, sp, dev, n)["prep"]
+    pf, pb = prepare_dia(B), prepare_dia(B, dtype=torch.bfloat16)
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.uniform(-1, 1, n).astype(np.float32)).to(dev)
+    X = torch.from_numpy(rng.uniform(-1, 1, (cs.RHS, n))
+                         .astype(np.float32)).to(dev)
+    A_csr = cs.library_csr(torch, n, dev)
+    work = {
+        "K1 f32": lambda: spmv_dia_stream(pf, x),
+        "K1 bf16": lambda: spmv_dia_stream(pb, x),
+        "K2 f32, 64 iterations": lambda: spmv_dia_chain(
+            pf, x, cs.CHAIN_ITERS, cs.CHAIN_SCALE),
+        "K3 f32, 8 RHS": lambda: spmm_dia_mrhs(pf, X),
+        "K3 bf16, 8 RHS": lambda: spmm_dia_mrhs(pb, X),
+        "K4 f32, 50 iterations": lambda: cg_solve_dia(
+            prep_s, x, iters=cs.CG_ITERS, shift=cs.SHIFT),
+        "library A_csr @ x": lambda: A_csr @ x,
+        "library A_csr @ X.T": lambda: A_csr @ X.T,
+    }
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for name, fn in work.items():
+        fn()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(CALLS):
+                fn()
+            torch.cuda.synchronize()
+        kernels = device_kernels(prof)
+        print(json.dumps({
+            "work": name, "calls": CALLS, "kernels": kernels,
+            "device_us_per_call": sum(k["device_us"] for k in kernels)
+            / CALLS,
+            "device": torch.cuda.get_device_name(0), "nvidia_smi": smi}),
+            flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -5,9 +5,11 @@
 Every test is marked ``gpu`` and skips where ``torch.cuda.is_available()``
 is false; the decision is made inside each test. This lane imports neither
 JAX nor the JAX package (the CPU parity tests under ``tests/`` hold the
-plain versions against JAX). Tolerances: K1 rtol/atol 1e-5 (the kernel
-fuses multiply-adds, the plain version rounds each product); K2 rtol 1e-4 /
-atol 1e-6 over up to 7 iterations.
+plain versions against JAX). Tolerances: K1 and K3 rtol/atol 1e-5 (the
+kernels fuse multiply-adds, the plain versions round each product); K2
+rtol 1e-4 / atol 1e-6 over up to 7 iterations; K4 1e-4 of max|x| after 40
+CG iterations against its plain version and the composed solve over K1
+(the rounding differences compound through the recurrences).
 """
 
 import numpy as np
@@ -16,9 +18,12 @@ import torch
 
 import spsparse_torch.ops.dia_stream as dia_stream_mod
 from spsparse_torch.convert import dia_from_numpy
-from spsparse_torch.ops import (best_spmv, prepare_dia, spmv_dia_chain,
-                                spmv_dia_chain_reference, spmv_dia_stream,
-                                spmv_dia_stream_reference)
+from spsparse_torch.ops import (best_spmv, cg_solve_dia,
+                                cg_solve_dia_reference, prepare_dia,
+                                spmm_dia_mrhs, spmm_dia_mrhs_reference,
+                                spmv_dia_chain, spmv_dia_chain_reference,
+                                spmv_dia_stream, spmv_dia_stream_reference)
+from spsparse_torch.solvers import cg_solve
 
 pytestmark = pytest.mark.gpu
 
@@ -106,3 +111,92 @@ def test_k2_matches_plain(iters):
     torch.testing.assert_close(
         z, spmv_dia_chain_reference(prep, x, iters, 0.9),
         rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("R", [1, 7, 8])
+def test_k3_matches_plain(dtype, R):
+    dev = _cuda()
+    rng = np.random.default_rng(20 + R)
+    n = 100_003                       # not a multiple of the block
+    data, offs = banded(rng, n, [-300, -5, 0, 1, 7, 129])
+    prep = prepare_dia(dia_from_numpy(data, offs, (n, n), device=dev),
+                       dtype=getattr(torch, dtype))
+    X = torch.from_numpy(rng.uniform(-1, 1, (R, n)).astype(np.float32)).to(
+        dev)
+    before = spmm_dia_mrhs.launches
+    Y = spmm_dia_mrhs(prep, X)
+    torch.cuda.synchronize()
+    assert spmm_dia_mrhs.launches == before + 1
+    assert Y.shape == (R, n)
+    torch.testing.assert_close(Y, spmm_dia_mrhs_reference(prep, X),
+                               rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(Y[0], spmv_dia_stream(prep, X[0]), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_k3_vector_rhs_and_grads():
+    dev = _cuda()
+    rng = np.random.default_rng(30)
+    n = 5000
+    data, offs = banded(rng, n, [-2, 0, 3])
+    dia = dia_from_numpy(data, offs, (n, n), device=dev)
+    x = torch.from_numpy(rng.uniform(-1, 1, n).astype(np.float32)).to(dev)
+    torch.testing.assert_close(spmm_dia_mrhs(dia, x),
+                               spmv_dia_stream_reference(prepare_dia(dia), x),
+                               rtol=1e-5, atol=1e-5)
+    X = torch.from_numpy(rng.uniform(-1, 1, (3, n)).astype(np.float32))
+    W = torch.from_numpy(rng.uniform(-1, 1, (3, n)).astype(np.float32))
+    grads = []
+    for d in (dev, "cpu"):
+        data_t = torch.from_numpy(data).to(d).requires_grad_(True)
+        Xt = X.to(d).requires_grad_(True)
+        dd = type(dia)(data=data_t, offsets=offs, shape=(n, n))
+        (W.to(d) * spmm_dia_mrhs(dd, Xt)).sum().backward()
+        grads.append((data_t.grad.cpu(), Xt.grad.cpu()))
+    for g_dev, g_cpu in zip(*grads):
+        torch.testing.assert_close(g_dev, g_cpu, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n", [1, 777, 65_537])
+def test_k4_matches_plain_and_composed(dtype, n):
+    dev = _cuda()
+    rng = np.random.default_rng(n)
+    offs = (-2, -1, 0, 1, 2)
+    data, offs = banded(rng, n, offs, scale=0.5)
+    # Symmetrise: A[i, i+o] = A[i+o, i], so A + 3 I is SPD by Gershgorin.
+    for k, o in enumerate(offs):
+        if o > 0:
+            kk = offs.index(-o)
+            data[kk, o:] = data[k, :n - o]
+    prep = prepare_dia(dia_from_numpy(data, offs, (n, n), device=dev),
+                       dtype=getattr(torch, dtype))
+    b = torch.from_numpy(rng.uniform(-1, 1, n).astype(np.float32)).to(dev)
+    before = cg_solve_dia.launches
+    x, rs = cg_solve_dia(prep, b, iters=40, shift=3.0)
+    torch.cuda.synchronize()
+    assert cg_solve_dia.launches == before + 1
+    assert x.shape == (n,) and rs.shape == () and rs.device.type == "cuda"
+    x_ref, rs_ref = cg_solve_dia_reference(prep, b, iters=40, shift=3.0)
+    x_cmp, _ = cg_solve(lambda v: best_spmv(prep, v) + 3.0 * v, b, iters=40)
+    scale = float(x_ref.abs().max())
+    for other in (x_ref, x_cmp):
+        assert float((x - other).abs().max()) <= 1e-4 * scale
+    assert float(rs) <= 1e-8 * float(b.dot(b)) + 1e-10
+
+
+def test_k4_zero_rhs_and_zero_iters():
+    dev = _cuda()
+    rng = np.random.default_rng(40)
+    n = 4099
+    data, offs = banded(rng, n, [-1, 0, 1], scale=0.3)
+    prep = prepare_dia(dia_from_numpy(data, offs, (n, n), device=dev))
+    x, rs = cg_solve_dia(prep, torch.zeros(n, device=dev), iters=5,
+                         shift=2.0)
+    torch.cuda.synchronize()
+    assert torch.equal(x, torch.zeros_like(x)) and float(rs) == 0.0
+    b = torch.from_numpy(rng.uniform(-1, 1, n).astype(np.float32)).to(dev)
+    x, rs = cg_solve_dia(prep, b, iters=0)
+    torch.testing.assert_close(rs, b.dot(b), rtol=1e-5, atol=0)
+    assert torch.equal(x, torch.zeros_like(x))
