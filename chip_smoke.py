@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the spsparse_torch main path and solve path once on one CUDA card
-and check them.
+"""Drive the spsparse_torch main path, solve path and SpMM path once on one
+CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -36,10 +36,34 @@ Gershgorin: off-diagonal row sums below 10, diagonal above -1):
 10. ``cg_solve_mrhs`` over K3 with a Jacobi preconditioner, 8 right-hand
     sides, 50 iterations: per-column float64 residuals, and one column
     against ``pcg_solve`` over K1.
-11. Time every kernel against its plain version (CUDA events, in turns:
+
+The SpMM path (``spmm_path``), general sparse x dense products at bench
+config 3's widths (``bench.py:_regrid_matrix``: m = 2**18 rows, 50 entries
+a row within 128 columns of column 2r, 2m columns, X of 128 columns, all
+from ``default_rng(0)``):
+
+11. Build A through ``CooBuilder`` and ``to_tiled``: 8190 tiles of cap
+    4096, as the JAX package records for config 3.
+12. K5: ``prepare_tiled_window(tl, group=32)`` in bfloat16 (config 3's
+    layout) and ``prepare_general(A)`` in float32, which must route to
+    ``dense_window``; ``spmm_tiled_window`` and ``spmm_general`` against
+    the plain version and a float64 scipy product on 4096 sampled rows.
+13. K6: ``spmm_tiled_dense`` on ``to_tiled_dense`` of the window layout and
+    on ``prepare_tiled_dense`` (float32, bfloat16), against its plain
+    version and against K5.
+14. K7: ``spmm_tiled_onehot`` on ``prepare_tiled_rows`` of the same tiles,
+    against its plain version and K6; a one-hot-tier matrix (40-48 entries
+    in the diagonal tile of each block row) through ``prepare_general``
+    (route ``one_hot``); bench config 3b's scattered matrix (route
+    ``gather_ell``) against scipy.
+15. One backward through ``spmm_general`` on the dense-window layout at
+    2**13 rows, against the plain backward on the CPU.
+16. Time every kernel against its plain version (CUDA events, in turns:
     plain, kernel, kernel, plain), and one PyTorch library call computing
     the same function where there is one (``torch.sparse_csr_tensor``
-    products; none for K4, whose solve is no single library call).
+    products; none for K4, whose solve is no single library call). K7 is
+    timed on config 3's tiles and on the one_hot route's layout of phase
+    14, the traffic ``prepare_general`` sends it.
 
 The launch counters of the kernel wrappers are reset before each path and
 read after it; a kernel of the path launched no time there fails the run.
@@ -67,8 +91,19 @@ CHAIN_SCALE = 0.3
 SHIFT = 11.0         # S + 11 I is SPD by Gershgorin
 CG_ITERS = 50
 RHS = 8              # right-hand sides of K3 and the block solve
+SPMM_M = 1 << 18     # rows of bench config 3's regridding matrix
+SPMM_K = 50          # entries a row
+SPMM_N = 128         # columns of the dense block X
+SPREAD = 128
+WINDOW_GROUP = 32    # config 3's super-row group
+CFG3B_M = 1 << 14    # rows of bench config 3b's scattered matrix
+TILE_SIDE = 128
+TILE_ELEMS = TILE_SIDE * TILE_SIDE
+SAMPLED_ROWS = 4096
+GRAD_M = 1 << 13
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12     # H100 SXM bfloat16 on the tensor cores
 
 KERNELS = {
     "spmv_dia_stream": dict(
@@ -83,6 +118,15 @@ KERNELS = {
     "cg_solve_dia": dict(
         route="cuda", source="spsparse_torch/csrc/dia_cg.cu",
         replaces="spsparse_tpu/ops/pallas_cg.py:71"),
+    "spmm_tiled_window": dict(
+        route="cuda", source="spsparse_torch/csrc/tiled_window.cu",
+        replaces="spsparse_tpu/ops/pallas_tiled_window.py:145"),
+    "spmm_tiled_dense": dict(
+        route="cuda", source="spsparse_torch/csrc/tiled.cu",
+        replaces="spsparse_tpu/ops/pallas_tiled.py:367"),
+    "spmm_tiled_onehot": dict(
+        route="cuda", source="spsparse_torch/csrc/tiled.cu",
+        replaces="spsparse_tpu/ops/pallas_tiled.py:112"),
 }
 
 
@@ -146,10 +190,7 @@ def phase_ingest(torch, sp, dev, n):
 
 
 def scipy_banded(n):
-    import scipy.sparse as ssp
-
-    r, c, v = banded_entries(n)
-    return ssp.csr_matrix((v.astype(np.float64), (r, c)), shape=(n, n))
+    return csr_host(*banded_entries(n), (n, n))
 
 
 def _csr_of(coo):
@@ -488,6 +529,290 @@ def solve_path(torch, sp, dev, n=N) -> dict:
             "nnz": spd["stored"]}
 
 
+def regrid_entries(m: int, seed: int = 0):
+    """Bench config 3's matrix and dense block (``bench.py:_regrid_matrix``
+    and ``config3_spmm``): row r holds SPMM_K entries at columns
+    ``clip(2r + U{-SPREAD..SPREAD}, 0, 2m-1)`` with values uniform(-1, 1),
+    then X uniform(-1, 1) of shape ``(2m, SPMM_N)``, all from one
+    ``default_rng(seed)``. Returns ``(rows, cols, vals, X)``."""
+    rng = np.random.default_rng(seed)
+    rr = np.repeat(np.arange(m), SPMM_K)
+    cc = np.clip(rr * 2 + rng.integers(-SPREAD, SPREAD + 1, rr.size), 0,
+                 2 * m - 1)
+    vals = rng.uniform(-1, 1, rr.size).astype(np.float32)
+    X = rng.uniform(-1, 1, (2 * m, SPMM_N)).astype(np.float32)
+    return rr, cc, vals, X
+
+
+def build_coo(sp, dev, shape, rows, cols, vals):
+    b = sp.CooBuilder(shape, dtype=np.float32)
+    b.add_many(np.stack([rows, cols], axis=1), vals)
+    return b.build(device=dev)
+
+
+def sampled_rows_ref(rr, cc, vals, X, m, nrows=SAMPLED_ROWS, seed=7):
+    """``(rows, float64 A[rows] @ X)`` on sampled rows, by scipy.sparse
+    (rows of ``rr`` are sorted and of equal length)."""
+    import scipy.sparse as ssp
+
+    rows = np.sort(np.random.default_rng(seed).choice(
+        m, min(nrows, m), replace=False))
+    sel = (rows[:, None] * SPMM_K + np.arange(SPMM_K)).reshape(-1)
+    part = ssp.csr_matrix(
+        (vals[sel].astype(np.float64),
+         (np.repeat(np.arange(rows.size), SPMM_K), cc[sel])),
+        shape=(rows.size, X.shape[0]))
+    return rows, part @ X.astype(np.float64)
+
+
+def csr_host(rows, cols, vals, shape):
+    import scipy.sparse as ssp
+
+    return ssp.csr_matrix((vals.astype(np.float64), (rows, cols)),
+                          shape=shape)
+
+
+def check_pair(got, ref, what: str, bf16: bool) -> float:
+    """A kernel against its plain version: float32 rtol 1e-5 with atol
+    1e-5 of max|ref| (the two sum in another order); bfloat16 blocks atol
+    1e-4 of max|ref| (exact products, float32 sums of many terms)."""
+    ok, err = close(got.cpu().numpy(), ref.cpu().numpy(),
+                    0.0 if bf16 else 1e-5, 1e-4 if bf16 else 1e-5)
+    require(ok, f"{what} off (max abs err {err})")
+    return err
+
+
+def check_sampled(Y, rows, ref, what: str, bf16: bool) -> float:
+    """Against the float64 scipy rows: float32 rtol/atol 1e-5 of max|ref|;
+    bfloat16 operands 2e-2 of max|ref| (bfloat16 rounds A and X)."""
+    got = Y.cpu().numpy()[rows]
+    ok, err = close(got, ref, 0.0 if bf16 else 1e-5, 2e-2 if bf16 else 1e-5)
+    require(ok, f"{what} off the float64 scipy rows (max abs err {err})")
+    return err
+
+
+def phase_regrid(torch, sp, dev, m):
+    """Phase 11: config 3's matrix through CooBuilder and to_tiled."""
+    rr, cc, vals, X = regrid_entries(m)
+    A = build_coo(sp, dev, (m, 2 * m), rr, cc, vals)
+    tl = sp.to_tiled(A)
+    sync(torch, dev)
+    if m == SPMM_M:
+        require(tl.n_tiles == 8190 and tl.tile_cap == 4096,
+                f"config 3 tiles: n_tiles {tl.n_tiles}, tile_cap "
+                f"{tl.tile_cap} (expected 8190 and 4096)")
+    nnz = int((tl.vals != 0).sum())
+    require(nnz == rr.size, f"tiled nnz {nnz} vs {rr.size} entries")
+    return {"A": A, "tl": tl, "X": torch.from_numpy(X).to(dev),
+            "entries": (rr, cc, vals), "X_host": X, "m": m,
+            "fill": rr.size / tl.n_tiles}
+
+
+def phase_window(torch, sp, dev, reg):
+    """Phase 12: K5 in bfloat16 (group 32) and through prepare_general in
+    float32 (route dense_window)."""
+    from spsparse_torch.ops import (best_spmm, prepare_general,
+                                    prepare_tiled_window, spmm_general,
+                                    spmm_tiled_window,
+                                    spmm_tiled_window_reference)
+
+    X, m = reg["X"], reg["m"]
+    rows, ref = sampled_rows_ref(*reg["entries"], reg["X_host"], m)
+    prep_w = prepare_tiled_window(reg["tl"], group=WINDOW_GROUP)
+    pg = prepare_general(reg["A"])
+    require(pg.kernel == "dense_window",
+            f"prepare_general routed config 3 to {pg.kernel}")
+    Xp = X if pg.order is None else X[pg.order]
+    out = {"prep_bf16": prep_w, "prep_f32": pg.prep, "pg": pg, "Xp": Xp,
+           "err": {}, "sampled": rows, "sampled_ref": ref}
+    Y_w = spmm_tiled_window(prep_w, X)
+    Y_g = spmm_general(pg, X)
+    Y_b = best_spmm(pg, X)
+    sync(torch, dev)
+    for Y in (Y_w, Y_g):
+        require(tuple(Y.shape) == (m, SPMM_N) and bool(torch.isfinite(Y)
+                                                       .all()),
+                "K5 output is not a finite (m, 128) block")
+    out["err"]["bf16"] = check_pair(
+        Y_w, spmm_tiled_window_reference(prep_w, X), "K5 bf16 vs plain",
+        True)
+    out["err"]["f32"] = check_pair(
+        Y_g, spmm_tiled_window_reference(pg.prep, Xp), "K5 f32 vs plain",
+        False)
+    require(torch.equal(Y_g, Y_b), "best_spmm and spmm_general differ")
+    out["sampled_err"] = {
+        "f32": check_sampled(Y_g, rows, ref, "K5 f32", False),
+        "bf16": check_sampled(Y_w, rows, ref, "K5 bf16", True)}
+    out["Y_bf16"], out["Y_f32"] = Y_w, Y_g
+    return out
+
+
+def phase_dense(torch, sp, dev, reg, win):
+    """Phase 13: K6 on the window layout's blocks and on
+    prepare_tiled_dense, float32 and bfloat16."""
+    from spsparse_torch.ops import (prepare_tiled_dense, spmm_tiled_dense,
+                                    spmm_tiled_dense_reference,
+                                    to_tiled_dense)
+
+    X = reg["X"]
+    out = {"err": {}}
+    rec = to_tiled_dense(win["prep_bf16"])
+    Y = spmm_tiled_dense(rec, X)
+    sync(torch, dev)
+    check_pair(Y, spmm_tiled_dense_reference(rec, X), "K6 bf16 (window "
+               "blocks) vs plain", True)
+    check_pair(Y, win["Y_bf16"], "K6 bf16 vs K5 bf16", True)
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        prep = prepare_tiled_dense(reg["tl"], dtype=dtype)
+        Y = spmm_tiled_dense(prep, X)
+        sync(torch, dev)
+        bf16 = name == "bf16"
+        err = check_pair(Y, spmm_tiled_dense_reference(prep, X),
+                         f"K6 {name} vs plain", bf16)
+        out["err"][name] = max(err, check_pair(Y, win[f"Y_{name}"],
+                                               f"K6 {name} vs K5", bf16))
+        out[name] = prep
+        out[f"Y_{name}"] = Y
+    return out
+
+
+def onehot_entries(m: int, seed: int = 5):
+    """A one-hot-tier matrix: 40-48 entries on the diagonal of each block
+    row's diagonal tile (one tile a block row, so packing cannot lower the
+    tile count), values uniform(-1, 1)."""
+    rng = np.random.default_rng(seed)
+    nbr = -(-m // 128)
+    k = rng.integers(40, 49, nbr)
+    r = np.concatenate([b * 128 + np.arange(kk) for b, kk in enumerate(k)])
+    r = r[r < m]
+    return r, r.copy(), rng.uniform(-1, 1, r.size).astype(np.float32)
+
+
+def cfg3b_entries(m: int, seed: int = 0):
+    """Bench config 3b (``bench.py:config3b_packed_general``): 8 uniform
+    random columns a row of 8m, values uniform(-1, 1), then X of 128
+    columns, from one ``default_rng(seed)``."""
+    rng = np.random.default_rng(seed)
+    ncols = 8 * m
+    rr = np.repeat(np.arange(m), 8)
+    cc = rng.integers(0, ncols, rr.size)
+    vals = rng.uniform(-1, 1, rr.size).astype(np.float32)
+    X = rng.uniform(-1, 1, (ncols, SPMM_N)).astype(np.float32)
+    return rr, cc, vals, X
+
+
+def phase_onehot(torch, sp, dev, reg, dense, m_onehot, m_3b):
+    """Phase 14: K7 on config 3's tiles; the one_hot and gather_ell
+    routes of prepare_general."""
+    from spsparse_torch.ops import (prepare_general, prepare_tiled_rows,
+                                    spmm_general, spmm_tiled_onehot,
+                                    spmm_tiled_onehot_reference)
+
+    X = reg["X"]
+    prep = prepare_tiled_rows(reg["tl"])
+    Y = spmm_tiled_onehot(prep, X)
+    sync(torch, dev)
+    err = check_pair(Y, spmm_tiled_onehot_reference(prep, X),
+                     "K7 vs plain", False)
+    err = max(err, check_pair(Y, dense["Y_f32"], "K7 vs K6 f32", False))
+
+    r, c, v = onehot_entries(m_onehot)
+    pg = prepare_general(build_coo(sp, dev, (m_onehot, m_onehot), r, c, v))
+    require(pg.kernel == "one_hot",
+            f"the one-hot-tier matrix routed to {pg.kernel}")
+    Xo = np.random.default_rng(6).uniform(-1, 1, (m_onehot, SPMM_N)).astype(
+        np.float32)
+    Xo_dev = torch.from_numpy(Xo).to(dev)
+    Xo_p = Xo_dev if pg.order is None else Xo_dev[pg.order]
+    Yo = spmm_general(pg, Xo_dev)
+    sync(torch, dev)
+    err_k = check_pair(Yo, spmm_tiled_onehot_reference(pg.prep, Xo_p),
+                       "K7 (one_hot route) vs plain", False)
+    ok, err_o = close(Yo.cpu().numpy(), csr_host(r, c, v, (m_onehot,
+                                                           m_onehot)) @ Xo,
+                      1e-5, 1e-5)
+    require(ok, f"one_hot route off scipy (max abs err {err_o})")
+
+    rr, cc, vals, X3 = cfg3b_entries(m_3b)
+    pg3 = prepare_general(build_coo(sp, dev, (m_3b, 8 * m_3b), rr, cc,
+                                    vals))
+    require(pg3.kernel == "gather_ell",
+            f"config 3b routed to {pg3.kernel}")
+    Y3 = spmm_general(pg3, torch.from_numpy(X3).to(dev))
+    sync(torch, dev)
+    ok, err_3b = close(Y3.cpu().numpy(), csr_host(
+        rr, cc, vals, (m_3b, 8 * m_3b)) @ X3, 1e-5, 1e-5)
+    require(ok, f"gather_ell route off scipy (max abs err {err_3b})")
+    return {"prep": prep, "err": err, "err_onehot_route": err_o,
+            "err_gather_ell": err_3b, "onehot_tiles": pg.prep.nbr,
+            "ell_kmax": pg3.prep.cols.shape[1], "route": {
+                "prep": pg.prep, "X": Xo_dev, "Xp": Xo_p, "entries": (r, c, v),
+                "m": m_onehot, "err": err_k}}
+
+
+def phase_grad(torch, sp, dev, m):
+    """Phase 15: one backward through spmm_general on the dense-window
+    layout (K5 forward), against the plain forward and backward on the
+    CPU; gradients rtol 1e-4 (atol 1e-4 of max|grad|)."""
+    import dataclasses
+
+    from spsparse_torch.ops import prepare_general, spmm_general
+
+    rr, cc, vals, X = regrid_entries(m)
+    W = np.random.default_rng(8).uniform(-1, 1, (m, SPMM_N)).astype(
+        np.float32)
+    grads = {}
+    for d in (dev, "cpu"):
+        pg = prepare_general(build_coo(sp, d, (m, 2 * m), rr, cc, vals))
+        require(pg.kernel == "dense_window", f"grad route {pg.kernel}")
+        blocks = pg.prep.blocks.clone().requires_grad_(True)
+        pg = dataclasses.replace(pg, prep=dataclasses.replace(
+            pg.prep, blocks=blocks))
+        Xt = torch.from_numpy(X).to(d).requires_grad_(True)
+        (torch.from_numpy(W).to(d) * spmm_general(pg, Xt)).sum().backward()
+        grads[str(d)] = (blocks.grad.cpu().numpy(), Xt.grad.cpu().numpy())
+    sync(torch, dev)
+    err = 0.0
+    for got, ref in zip(grads[str(dev)], grads["cpu"]):
+        ok, e = close(got, ref, 1e-4, 1e-4)
+        require(ok, f"spmm_general gradient off the plain backward ({e})")
+        err = max(err, e)
+    return err
+
+
+def spmm_path(torch, sp, dev, m=SPMM_M, m_onehot=SPMM_M, m_3b=CFG3B_M,
+              m_grad=GRAD_M) -> dict:
+    """Phases 11-15 on ``dev``; returns what the timing phase reuses."""
+    t0 = time.perf_counter()
+    reg = phase_regrid(torch, sp, dev, m)
+    log(f"phase 11 config 3 tiles: n_tiles {reg['tl'].n_tiles}, tile_cap "
+        f"{reg['tl'].tile_cap}, fill {reg['fill']!r} "
+        f"({time.perf_counter() - t0:.3f} s)")
+    t0 = time.perf_counter()
+    win = phase_window(torch, sp, dev, reg)
+    log(f"phase 12 K5: route {win['pg'].kernel}, ws "
+        f"{win['prep_bf16'].ws} (group {WINDOW_GROUP}, bf16) / "
+        f"{win['prep_f32'].ws} (group {win['prep_f32'].group}, f32); max "
+        f"abs err vs plain {win['err']}, vs float64 rows "
+        f"{win['sampled_err']} ({time.perf_counter() - t0:.3f} s)")
+    t0 = time.perf_counter()
+    dense = phase_dense(torch, sp, dev, reg, win)
+    log(f"phase 13 K6: max abs err {dense['err']} "
+        f"({time.perf_counter() - t0:.3f} s)")
+    t0 = time.perf_counter()
+    onehot = phase_onehot(torch, sp, dev, reg, dense, m_onehot, m_3b)
+    log(f"phase 14 K7: max abs err {onehot['err']!r}; one_hot route over "
+        f"{onehot['onehot_tiles']} block rows err "
+        f"{onehot['err_onehot_route']!r}; gather_ell route (Kmax "
+        f"{onehot['ell_kmax']}) err {onehot['err_gather_ell']!r} "
+        f"({time.perf_counter() - t0:.3f} s)")
+    t0 = time.perf_counter()
+    grad_err = phase_grad(torch, sp, dev, m_grad)
+    log(f"phase 15 spmm_general backward at m = {m_grad}: max abs err "
+        f"{grad_err!r} ({time.perf_counter() - t0:.3f} s)")
+    return {"reg": reg, "win": win, "dense": dense, "onehot": onehot}
+
+
 def time_ms(torch, fn, *, reps: int = 15, inner: int = 10,
             warmup: int = 3) -> list[float]:
     """Per-call milliseconds of ``reps`` CUDA-event-timed runs of ``inner``
@@ -534,23 +859,129 @@ def per_iteration_ms(torch, solves: dict, long: int = 72,
             / (long - short) for name, t in times.items()}
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+def bound_ms(nbytes: float, flops: float,
+             flops_per_s: float = F32_FLOPS_PER_S) -> tuple[float, str]:
     """Least time on an H100 SXM for the work: the larger of the bytes over
-    the memory rate and the float32 operations over the float32 rate."""
+    the memory rate and the operations over their type's rate (float32
+    outside the tensor cores unless ``flops_per_s`` says otherwise)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def library_csr_of(torch, rows, cols, vals, shape, dev):
+    """``torch.sparse_csr_tensor`` of an entry list on the card (float32):
+    the library yardstick, timed here and used nowhere in the port."""
+    A = csr_host(rows, cols, vals, shape).astype(np.float32)
+    A.sum_duplicates()
+    return torch.sparse_csr_tensor(
+        torch.from_numpy(A.indptr.astype(np.int64)).to(dev),
+        torch.from_numpy(A.indices.astype(np.int64)).to(dev),
+        torch.from_numpy(A.data).to(dev), size=shape, check_invariants=True)
+
+
+def tile_counts(torch, prep) -> tuple[int, int]:
+    """``(live tiles, occupied column blocks)`` of a prepared tiled layout,
+    read from its own tile columns (a packed or window layout may hold
+    other tiles than ``to_tiled`` gave)."""
+    tc = prep.tcols
+    tc = tc[tc < prep.nbc]
+    return int(tc.numel()), int(torch.unique(tc).numel())
+
+
+def spmm_timings(torch, spmm, launches: dict) -> list[dict]:
+    """Rows of the kernels line for K5, K6 and K7 at config 3, and for K7
+    on the one_hot route's layout (the traffic prepare_general sends it):
+    kernel and plain version in turns, the bound from each timed layout,
+    and one ``torch.sparse_csr_tensor`` product as the library yardstick.
+
+    Every bound counts the bytes the product needs, from the timed layout:
+    the live A tiles once (dense blocks, or K7's slot values and each
+    entry's row and column), X once per occupied column block (K7: once
+    per X row an entry names), Y once in float32."""
+    from spsparse_torch.ops import (spmm_tiled_dense,
+                                    spmm_tiled_dense_reference,
+                                    spmm_tiled_onehot,
+                                    spmm_tiled_onehot_reference,
+                                    spmm_tiled_window,
+                                    spmm_tiled_window_reference)
+
+    reg, win, dense = spmm["reg"], spmm["win"], spmm["dense"]
+    X, m = reg["X"], reg["m"]
+    nnz = reg["entries"][0].size
+    route = spmm["onehot"]["route"]
+
+    def library_ms(entries, shape, Xl):
+        A_csr = library_csr_of(torch, *entries, shape, Xl.device)
+        return float(np.median(time_ms(torch, lambda: A_csr @ Xl, reps=7,
+                                       inner=5)))
+
+    lib_ms = library_ms(reg["entries"], (m, 2 * m), X)
+    route_lib_ms = library_ms(route["entries"], (route["m"], route["m"]),
+                              route["X"])
+    kw = dict(reps=5, inner=3, warmup=2)
+    rows = []
+
+    def add(name, dtype, matrix, prep, Xk, kernel, plain, item, rate, err,
+            lib, nnz, timing_kw=kw):
+        ms, plain_ms = compare_times(torch, lambda: kernel(prep, Xk),
+                                     lambda: plain(prep, Xk), **timing_kw)
+        live, occupied = tile_counts(torch, prep)
+        n_rhs = Xk.shape[1]
+        x_bytes = occupied * TILE_SIDE * n_rhs * item
+        y_bytes = prep.shape[0] * n_rhs * 4
+        if name == "spmm_tiled_onehot":
+            # Every slot's value of the live tiles (a padding slot is known
+            # only by its zero value), each entry's row and column, and the
+            # X rows the entries name (an entry product needs no whole X
+            # tile); 2 operations per entry and column.
+            tc = prep.tcols.long()[:, :, None]
+            keep = (prep.vals != 0) & (tc < prep.nbc)
+            entries = int(keep.sum())
+            x_rows = int(torch.unique((tc * TILE_SIDE + prep.cols)[keep])
+                         .numel())
+            x_bytes = x_rows * n_rhs * item
+            a_bytes = live * prep.tile_cap * 4 + entries * 8
+            flops = 2 * entries * n_rhs
+        else:
+            a_bytes = live * TILE_ELEMS * item
+            flops = 2 * TILE_ELEMS * n_rhs * live
+        b_ms, b_by = bound_ms(a_bytes + x_bytes + y_bytes, flops, rate)
+        rows.append(dict(name=name, dtype=dtype, **KERNELS[name],
+                         launches=launches[name], max_abs_err=err, ms=ms,
+                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=lib, matrix=matrix, n=prep.shape[0],
+                         nnz=nnz, live_tiles=live,
+                         occupied_column_blocks=occupied))
+
+    c3 = "config 3"
+    add("spmm_tiled_window", "f32", c3 + " (prepare_general)",
+        win["prep_f32"], win["Xp"], spmm_tiled_window,
+        spmm_tiled_window_reference, 4, F32_FLOPS_PER_S, win["err"]["f32"],
+        lib_ms, nnz)
+    add("spmm_tiled_window", "bf16", c3, win["prep_bf16"], X,
+        spmm_tiled_window, spmm_tiled_window_reference, 2, BF16_FLOPS_PER_S,
+        win["err"]["bf16"], lib_ms, nnz)
+    for dname, item, rate in (("f32", 4, F32_FLOPS_PER_S),
+                              ("bf16", 2, BF16_FLOPS_PER_S)):
+        add("spmm_tiled_dense", dname, c3, dense[dname], X,
+            spmm_tiled_dense, spmm_tiled_dense_reference, item, rate,
+            dense["err"][dname], lib_ms, nnz)
+    add("spmm_tiled_onehot", "f32", c3, spmm["onehot"]["prep"], X,
+        spmm_tiled_onehot, spmm_tiled_onehot_reference, 4, F32_FLOPS_PER_S,
+        spmm["onehot"]["err"], lib_ms, nnz,
+        timing_kw=dict(reps=3, inner=2, warmup=1))
+    add("spmm_tiled_onehot", "f32", "one_hot route", route["prep"],
+        route["Xp"], spmm_tiled_onehot, spmm_tiled_onehot_reference, 4,
+        F32_FLOPS_PER_S, route["err"], route_lib_ms,
+        int(route["entries"][0].size))
+    return rows
 
 
 def library_csr(torch, n, dev):
     """``torch.sparse_csr_tensor`` of the benchmark matrix ``B`` on the
     card: the library yardstick, timed here and used nowhere in the port."""
-    Bs = scipy_banded(n).astype(np.float32)
-    return torch.sparse_csr_tensor(
-        torch.from_numpy(Bs.indptr.astype(np.int64)).to(dev),
-        torch.from_numpy(Bs.indices.astype(np.int64)).to(dev),
-        torch.from_numpy(Bs.data).to(dev), size=(n, n),
-        check_invariants=True)
+    return library_csr_of(torch, *banded_entries(n), (n, n), dev)
 
 
 def nvidia_smi_line() -> str:
@@ -586,6 +1017,8 @@ def main() -> int:
                                     spmv_dia_chain_reference,
                                     spmv_dia_stream,
                                     spmv_dia_stream_reference)
+    from spsparse_torch.ops import (spmm_tiled_dense, spmm_tiled_onehot,
+                                    spmm_tiled_window)
     from spsparse_torch.solvers import cg_solve
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -604,7 +1037,10 @@ def main() -> int:
     wrappers = {"spmv_dia_stream": spmv_dia_stream,
                 "spmv_dia_chain": spmv_dia_chain,
                 "spmm_dia_mrhs": spmm_dia_mrhs,
-                "cg_solve_dia": cg_solve_dia}
+                "cg_solve_dia": cg_solve_dia,
+                "spmm_tiled_window": spmm_tiled_window,
+                "spmm_tiled_dense": spmm_tiled_dense,
+                "spmm_tiled_onehot": spmm_tiled_onehot}
     torch.cuda.reset_peak_memory_stats()
     state, main_counts = run_path(torch, wrappers, main_path, torch, sp, dev)
     log(f"main path kernel launches: {main_counts}; peak device memory "
@@ -620,11 +1056,22 @@ def main() -> int:
     for name in ("spmm_dia_mrhs", "cg_solve_dia"):
         require(solve_counts[name] > 0,
                 f"kernel {name} was not launched on the solve path")
+    torch.cuda.reset_peak_memory_stats()
+    spmm, spmm_counts = run_path(torch, wrappers, spmm_path, torch, sp, dev)
+    log(f"spmm path kernel launches: {spmm_counts}; peak device memory "
+        f"{torch.cuda.max_memory_allocated()} bytes")
+    spmm_kernels = ("spmm_tiled_window", "spmm_tiled_dense",
+                    "spmm_tiled_onehot")
+    for name in spmm_kernels:
+        require(spmm_counts[name] > 0,
+                f"kernel {name} was not launched on the spmm path")
     launches = {**main_counts, **{k: solve_counts[k] for k in
-                                  ("spmm_dia_mrhs", "cg_solve_dia")}}
+                                  ("spmm_dia_mrhs", "cg_solve_dia")},
+                **{k: spmm_counts[k] for k in spmm_kernels}}
 
-    # Phase 11: timing, kernel against plain version, in turns; the
+    # Phase 16: timing, kernel against plain version, in turns; the
     # library call where one PyTorch call computes the same function.
+    t_timing = time.perf_counter()
     dia, mrhs = state["dia"], solve["mrhs"]
     x, X = dia["x"], mrhs["X"]
     nnz = state["nnz"]
@@ -685,12 +1132,16 @@ def main() -> int:
                      max_abs_err=solve["cg"]["err"], ms=cg_ms["kernel"],
                      plain_ms=cg_ms["plain"], bound_ms=b_ms, bound_by=b_by,
                      library_ms=None))
+    rows += spmm_timings(torch, spmm, launches)
     torch.cuda.synchronize()
+    log(f"phase 16 timing ({time.perf_counter() - t_timing:.3f} s)")
 
     for row in rows:
         print(json.dumps({
-            "timing": row["name"], "dtype": row["dtype"], "n": N,
-            "nnz": nnz, "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "timing": row["name"], "dtype": row["dtype"],
+            "matrix": row.get("matrix", "banded"), "n": row.get("n", N),
+            "nnz": row.get("nnz", nnz), "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "library_ms": row["library_ms"],
             "roofline_share": row["bound_ms"] / row["ms"],
             "device": card, "nvidia_smi": smi}), flush=True)

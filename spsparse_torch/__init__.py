@@ -2,7 +2,8 @@
 
 The same library as :mod:`spsparse_tpu` — rank-N padded COO arrays,
 duplicate-consolidating sort, CSR/ELL/DIA views, the diag-scaled sparse
-multiply chain, SpMV/SpMM and NetCDF I/O — on PyTorch tensors, with the
+multiply chain, SpMV/SpMM over DIA, BSR, tiled and prepared general
+operands, and NetCDF I/O — on PyTorch tensors, with the
 TPU's Pallas kernels rewritten as hand-written CUDA kernels for Hopper
 (``spsparse_torch/csrc``, built by :mod:`spsparse_torch.backend` on first
 use). Every kernel has a plain PyTorch version beside it, taken for CPU
@@ -34,6 +35,10 @@ from .core import (
     to_ell,
     SparseDIA,
     to_dia,
+    SparseBSR,
+    to_bsr,
+    SparseTiledCOO,
+    to_tiled,
     default_device,
 )
 

@@ -10,6 +10,13 @@ the JAX side is plain numpy (``np.asarray`` of a JAX array).
 * :func:`prepared_dia_from_jax` — un-blocks either kernel layout of the JAX
   ``PreparedDIA.data3`` (packed f32 ``(nblocks, K*block)`` or padded bf16
   ``(nblocks, K_pad, block)``) into the port's ``(K, n)`` layout.
+* :func:`tiled_from_jax`, :func:`bsr_from_jax`,
+  :func:`prepared_tiled_rows_from_jax`, :func:`prepared_tiled_dense_from_jax`,
+  :func:`prepared_tiled_window_from_jax` and
+  :func:`prepared_general_from_jax` — the tiled and general layouts. The
+  port keeps the JAX package's arrays as they are, so these copy field for
+  field (the live counts become Python ints); they take the JAX objects
+  and read each field with ``np.asarray``.
 
 Host arrays go to ``device``, the card by default
 (:func:`spsparse_torch.default_device`); the CPU tests pass
@@ -27,14 +34,21 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from .core.bsr import SparseBSR
 from .core.coo import SparseCOO
 from .core.device import resolve_device
 from .core.dia import SparseDIA
+from .core.tiled import SparseTiledCOO
 from .ops.dia_stream import PreparedDIA
+from .ops.general import PreparedGather, PreparedGatherEll, PreparedGeneral
+from .ops.tiled_spmm import PreparedTiledDense, PreparedTiledRows
+from .ops.tiled_window import PreparedTiledWindow
 
 __all__ = ["coo_from_numpy", "coo_to_numpy", "dia_from_numpy",
            "dia_to_numpy", "prepared_dia_from_jax", "tensor_from_numpy",
-           "tensor_to_numpy"]
+           "tensor_to_numpy", "tiled_from_jax", "bsr_from_jax",
+           "prepared_tiled_rows_from_jax", "prepared_tiled_dense_from_jax",
+           "prepared_tiled_window_from_jax", "prepared_general_from_jax"]
 
 Tensor = torch.Tensor
 
@@ -109,3 +123,70 @@ def prepared_dia_from_jax(data3, offsets: Sequence[int],
     return PreparedDIA(data=tensor_from_numpy(data, device),
                        offsets=tuple(int(o) for o in offsets),
                        shape=tuple(int(s) for s in shape))
+
+
+def _fields(obj, names, device) -> dict:
+    return {k: tensor_from_numpy(np.asarray(getattr(obj, k)), device)
+            for k in names}
+
+
+def _shape(obj) -> tuple:
+    return tuple(int(s) for s in obj.shape)
+
+
+def tiled_from_jax(tl, *, device=None) -> SparseTiledCOO:
+    """The port's :class:`SparseTiledCOO` holding a JAX ``SparseTiledCOO``'s
+    arrays."""
+    return SparseTiledCOO(
+        **_fields(tl, ("tile_row", "tile_col", "rows", "cols", "vals"),
+                  device),
+        n_tiles=int(np.asarray(tl.n_tiles)), shape=_shape(tl))
+
+
+def bsr_from_jax(bsr, *, device=None) -> SparseBSR:
+    """The port's :class:`SparseBSR` holding a JAX ``SparseBSR``'s arrays."""
+    return SparseBSR(**_fields(bsr, ("row_ptr", "bcols", "blocks"), device),
+                     nnz_blocks=int(np.asarray(bsr.nnz_blocks)),
+                     shape=_shape(bsr))
+
+
+def prepared_tiled_rows_from_jax(prep, *, device=None) -> PreparedTiledRows:
+    return PreparedTiledRows(
+        **_fields(prep, ("tcols", "rows", "cols", "vals"), device),
+        shape=_shape(prep))
+
+
+def prepared_tiled_dense_from_jax(prep, *, device=None) -> PreparedTiledDense:
+    return PreparedTiledDense(**_fields(prep, ("tcols", "blocks"), device),
+                              shape=_shape(prep))
+
+
+def prepared_tiled_window_from_jax(prep, *,
+                                   device=None) -> PreparedTiledWindow:
+    return PreparedTiledWindow(
+        **_fields(prep, ("wstart", "offs", "blocks"), device),
+        shape=_shape(prep), group=int(prep.group), ws=int(prep.ws))
+
+
+def prepared_general_from_jax(pg, *, device=None) -> PreparedGeneral:
+    """The port's :class:`PreparedGeneral` from a JAX one: the layout by
+    its type name, ``order`` as an int64 tensor (or None)."""
+    inner = pg.prep
+    kind = type(inner).__name__
+    if kind == "PreparedTiledWindow":
+        prep = prepared_tiled_window_from_jax(inner, device=device)
+    elif kind == "PreparedTiledDense":
+        prep = prepared_tiled_dense_from_jax(inner, device=device)
+    elif kind == "PreparedTiledRows":
+        prep = prepared_tiled_rows_from_jax(inner, device=device)
+    elif kind == "PreparedGatherEll":
+        prep = PreparedGatherEll(**_fields(inner, ("cols", "vals"), device),
+                                 shape=_shape(inner))
+    elif kind == "PreparedGather":
+        prep = PreparedGather(**_fields(inner, ("rows", "cols", "vals"),
+                                        device), shape=_shape(inner))
+    else:
+        raise TypeError(f"prepared_general_from_jax: unknown layout {kind}")
+    order = (None if pg.order is None else tensor_from_numpy(
+        np.asarray(pg.order).astype(np.int64), device))
+    return PreparedGeneral(order=order, prep=prep)

@@ -1,4 +1,5 @@
-"""Core layer: COO arrays, consolidation, structure views, DIA storage."""
+"""Core layer: COO arrays, consolidation, structure views, DIA, BSR and
+tiled storage."""
 
 from .errors import (
     DuplicatePolicy,
@@ -29,6 +30,8 @@ from .structure import (
     to_ell,
 )
 from .dia import SparseDIA, to_dia, dia_to_coo
+from .bsr import SparseBSR, to_bsr
+from .tiled import SparseTiledCOO, to_tiled, pack_columns
 
 __all__ = [
     "DuplicatePolicy", "SpSparseError", "set_error_handler",
@@ -40,4 +43,5 @@ __all__ = [
     "dim_beginnings", "DimBeginnings", "SparseCSR", "SparseELL",
     "to_csr", "to_csc", "to_ell",
     "SparseDIA", "to_dia", "dia_to_coo",
+    "SparseBSR", "to_bsr", "SparseTiledCOO", "to_tiled", "pack_columns",
 ]

@@ -1,9 +1,11 @@
 """Sparse x dense products: SpMV (dense vector) and SpMM (dense block).
 
-PyTorch counterpart of the generic CSR/COO/ELL paths of
-:mod:`spsparse_tpu.ops.spmm` (gather + per-row scatter-add). The DIA
-kernels live in :mod:`spsparse_torch.ops.dia_stream`; BSR SpMM
-(``spmm_bsr``) is not ported yet.
+PyTorch counterpart of :mod:`spsparse_tpu.ops.spmm`: the generic
+CSR/COO/ELL paths (gather + per-row scatter-add) and BSR SpMM
+(:func:`spmm_bsr`, one batched tile product). The DIA kernels live in
+:mod:`spsparse_torch.ops.dia_stream`, the tiled kernels in
+:mod:`spsparse_torch.ops.tiled_spmm` and :mod:`spsparse_torch.ops.
+tiled_window`.
 
 ``filter_nan`` treats non-finite entries of the dense operand as zero so
 that they do not poison the whole output row (the reference sketch,
@@ -14,12 +16,13 @@ from __future__ import annotations
 
 import torch
 
+from ..core.bsr import SparseBSR
 from ..core.coo import SparseCOO, operand_tensor
 from ..core.errors import spsparse_error
 from ..core.structure import SparseCSR, SparseELL, to_csr
 from ..utils.trace import traced
 
-__all__ = ["spmv", "spmm"]
+__all__ = ["spmv", "spmm", "spmm_bsr"]
 
 Tensor = torch.Tensor
 
@@ -84,7 +87,8 @@ def spmm(A, X, *, transpose: bool = False, filter_nan: bool = False,
          accum_dtype=None) -> Tensor:
     """``Y = A^(T?) @ X`` for a dense block ``X (K, N)``; returns ``(I, N)``.
     ``accum_dtype`` forces the accumulation precision."""
-    X = operand_tensor(X, A.vals.device)
+    X = operand_tensor(X, A.device if isinstance(A, SparseBSR)
+                       else A.vals.device)
     if X.ndim == 1:
         return spmv(A, X, transpose=transpose, filter_nan=filter_nan)
     if isinstance(A, SparseELL):
@@ -96,6 +100,10 @@ def spmm(A, X, *, transpose: bool = False, filter_nan: bool = False,
         g = _gather_rows(Xc, A.cols.reshape(-1)).reshape(
             *A.cols.shape, X.shape[1])
         return torch.einsum("rk,rkn->rn", A.vals.to(acc), g.to(acc))
+    if isinstance(A, SparseBSR):
+        if transpose:
+            raise NotImplementedError("transpose SpMM on BSR: convert first")
+        return spmm_bsr(A, _clean(X, filter_nan), accum_dtype=accum_dtype)
     csr = _as_csr(A, transpose)
     _check_inner(csr.ncols, X.shape[0], "X")
     Xc = _clean(X, filter_nan)
@@ -105,3 +113,22 @@ def spmm(A, X, *, transpose: bool = False, filter_nan: bool = False,
     rows = csr.row_ids()[: csr.nnz].long()
     Y = torch.zeros((csr.nrows, X.shape[1]), dtype=acc, device=csr.device)
     return Y.index_add_(0, rows, prod)
+
+
+def spmm_bsr(bsr: SparseBSR, X, *, accum_dtype=None) -> Tensor:
+    """BSR x dense block: one ``(bh, bw) @ (bw, N)`` product per stored
+    tile (a batched ``einsum``), summed into the block rows of ``Y``."""
+    X = operand_tensor(X, bsr.device)
+    bh, bw = bsr.block_shape
+    _check_inner(bsr.shape[1], X.shape[0], "X")
+    acc = accum_dtype or torch.promote_types(bsr.blocks.dtype, X.dtype)
+    N = X.shape[1]
+    nb = bsr.nnz_blocks
+    rows = bsr.bcols[:nb, None].long() * bw + torch.arange(bw,
+                                                           device=X.device)
+    ok = rows < X.shape[0]
+    gathered = X[torch.where(ok, rows, 0)].to(acc) * ok[:, :, None]
+    tiles = torch.einsum("chw,cwn->chn", bsr.blocks[:nb].to(acc), gathered)
+    Y = torch.zeros((bsr.nbrows, bh, N), dtype=acc, device=X.device)
+    Y.index_add_(0, bsr.block_rows()[:nb].long(), tiles)
+    return Y.reshape(bsr.nbrows * bh, N)[: bsr.shape[0]]

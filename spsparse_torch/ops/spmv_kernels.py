@@ -9,21 +9,32 @@ Counterpart of :mod:`spsparse_tpu.ops.spmv_kernels`:
   :class:`SparseDIA` / :class:`PreparedDIA` go to kernel K1
   (:func:`spmv_dia_stream`), which launches the CUDA kernel for CUDA
   tensors and runs its plain version for CPU tensors.
-* :func:`best_spmm` — the same dispatch for a dense block ``X``.
+* :func:`best_spmm` — the same dispatch for a dense block ``X``: the
+  prepared general and tiled layouts go to kernels K5
+  (:func:`spmm_tiled_window`), K6 (:func:`spmm_tiled_dense`) and K7
+  (:func:`spmm_tiled_onehot`), BSR to :func:`spmm_bsr`.
 
-Operand formats of the JAX package that are not ported yet raise
-``NotImplementedError`` naming their ROADMAP item.
+``PreparedShuffleSpMV``, the one operand format of the JAX package that is
+not ported yet, raises ``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..core.bsr import SparseBSR
 from ..core.coo import operand_tensor
 from ..core.dia import SparseDIA
 from ..core.structure import SparseELL
+from ..core.tiled import SparseTiledCOO
 from .dia_stream import PreparedDIA, spmv_dia_stream
-from .spmm import _gather_rows, spmm as _spmm_generic, spmv as _spmv_generic
+from .general import PreparedGeneral, spmm_general, spmv_general
+from .spmm import (_gather_rows, spmm as _spmm_generic, spmm_bsr,
+                   spmv as _spmv_generic)
+from .tiled_ops import spmm_tiled
+from .tiled_spmm import (PreparedTiledDense, PreparedTiledRows,
+                         spmm_tiled_dense, spmm_tiled_onehot)
+from .tiled_window import PreparedTiledWindow, spmm_tiled_window
 
 __all__ = ["spmv_dia", "spmv_ell", "best_spmv", "best_spmm"]
 
@@ -31,13 +42,7 @@ Tensor = torch.Tensor
 
 # JAX operand types whose port is still queued (ROADMAP queue 1).
 _NOT_PORTED = {
-    "PreparedGeneral": "ROADMAP item 14 (ops/general.py)",
     "PreparedShuffleSpMV": "ROADMAP item 18 (ops/spmv_shuffle.py)",
-    "SparseTiledCOO": "ROADMAP item 12 (core/tiled.py)",
-    "PreparedTiledDense": "ROADMAP item 13 (ops/pallas_tiled.py)",
-    "PreparedTiledRows": "ROADMAP item 13 (ops/pallas_tiled.py)",
-    "PreparedTiledWindow": "ROADMAP item 13 (ops/pallas_tiled_window.py)",
-    "SparseBSR": "ROADMAP item 12 (core/bsr.py)",
 }
 
 
@@ -71,9 +76,12 @@ def spmv_ell(ell: SparseELL, x: Tensor) -> Tensor:
 
 def best_spmv(a, x: Tensor) -> Tensor:
     """Format-dispatched SpMV. DIA operands go to kernel K1 (float32
-    result); ELL to :func:`spmv_ell`; CSR/COO to the generic CSR path."""
+    result); a :class:`PreparedGeneral` to :func:`spmv_general`; ELL to
+    :func:`spmv_ell`; CSR/COO to the generic CSR path."""
     if isinstance(a, (SparseDIA, PreparedDIA)):
         return spmv_dia_stream(a, x)
+    if isinstance(a, PreparedGeneral):
+        return spmv_general(a, x)
     _reject_unported(a)
     if isinstance(a, SparseELL):
         return spmv_ell(a, x)
@@ -81,9 +89,23 @@ def best_spmv(a, x: Tensor) -> Tensor:
 
 
 def best_spmm(a, X: Tensor) -> Tensor:
-    """Format-dispatched SpMM ``Y = A @ X`` for a dense ``X (K, N)``. DIA
-    operands run :func:`spmv_dia` per column (the JAX package's XLA path);
-    CSR/COO/ELL the generic gather path."""
+    """Format-dispatched SpMM ``Y = A @ X`` for a dense ``X (K, N)``.
+    Prepared general and tiled layouts run kernels K5-K7 (float32 result),
+    a :class:`SparseTiledCOO` the plain tiled product, BSR the batched tile
+    product; DIA operands run :func:`spmv_dia` per column (the JAX
+    package's XLA path); CSR/COO/ELL the generic gather path."""
+    if isinstance(a, PreparedTiledWindow):
+        return spmm_tiled_window(a, operand_tensor(X, a.device))
+    if isinstance(a, PreparedGeneral):
+        return spmm_general(a, X)
+    if isinstance(a, PreparedTiledDense):
+        return spmm_tiled_dense(a, operand_tensor(X, a.device))
+    if isinstance(a, PreparedTiledRows):
+        return spmm_tiled_onehot(a, operand_tensor(X, a.device))
+    if isinstance(a, SparseTiledCOO):
+        return spmm_tiled(a, X)
+    if isinstance(a, SparseBSR):
+        return spmm_bsr(a, X)
     _reject_unported(a)
     X = operand_tensor(X, a.vals.device if isinstance(a, SparseELL)
                        else a.device)

@@ -184,13 +184,19 @@ def aslinearoperator(a) -> LinearOperator:
     * :class:`SparseCSR` / :class:`SparseELL` — forward only.
     * :class:`SparseDIA` — ``matvec`` through :func:`ops.best_spmv` (kernel
       K1), ``matmat`` through :func:`ops.best_spmm`.
-    * :class:`~spsparse_torch.ops.PreparedDIA` — ``matvec`` through
+    * :class:`SparseBSR` / :class:`SparseTiledCOO` — ``matmat`` through
+      ``best_spmm``; a vector rides as a one-column block.
+    * :class:`~spsparse_torch.ops.PreparedDIA` /
+      :class:`~spsparse_torch.ops.PreparedGeneral` — ``matvec`` through
       ``best_spmv``; ``matmat`` is the column loop.
 
-    Operand types of the JAX package that are not ported yet raise
-    ``NotImplementedError`` naming their ROADMAP item.
+    ``PreparedShuffleSpMV``, the operand type of the JAX package that is
+    not ported yet, raises ``NotImplementedError`` naming its ROADMAP item.
     """
+    from ..core.bsr import SparseBSR
+    from ..core.tiled import SparseTiledCOO
     from ..ops.dia_stream import PreparedDIA
+    from ..ops.general import PreparedGeneral
     from ..ops.spmm import spmm, spmv
     from ..ops.spmv_kernels import _reject_unported, best_spmm, best_spmv
 
@@ -210,7 +216,11 @@ def aslinearoperator(a) -> LinearOperator:
     if isinstance(a, SparseDIA):
         return LinearOperator(a.shape, lambda x: best_spmv(a, x), None,
                               matmat=lambda X: best_spmm(a, X))
-    if isinstance(a, PreparedDIA):
+    if isinstance(a, (SparseBSR, SparseTiledCOO)):
+        return LinearOperator(
+            a.shape, lambda x: best_spmm(a, x[:, None])[:, 0], None,
+            matmat=lambda X: best_spmm(a, X))
+    if isinstance(a, (PreparedDIA, PreparedGeneral)):
         return LinearOperator(a.shape, lambda x: best_spmv(a, x), None)
     arr = as_tensor(a)
     if arr.ndim != 2:

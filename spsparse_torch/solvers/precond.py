@@ -11,9 +11,8 @@ PyTorch counterpart of :mod:`spsparse_tpu.solvers.precond`:
   ``M^-1 = sum_{i<k} (I - D^-1 A)^i D^-1``: ``k-1`` extra applications of
   the operator's own SpMV, no triangular solves.
 
-:func:`extract_diagonal` feeds them from the formats the port has (COO, CSR,
-DIA). BSR and tiled operands are not ported yet and raise
-``NotImplementedError`` naming their ROADMAP item.
+:func:`extract_diagonal` feeds them from COO, CSR, DIA, BSR and tiled COO
+operands.
 """
 
 from __future__ import annotations
@@ -22,22 +21,17 @@ from typing import Callable
 
 import torch
 
+from ..core.bsr import SparseBSR
 from ..core.coo import SparseCOO
 from ..core.dia import SparseDIA
 from ..core.errors import SpSparseError
 from ..core.structure import SparseCSR
+from ..core.tiled import TILE, SparseTiledCOO
 
 Tensor = torch.Tensor
 
 __all__ = ["extract_diagonal", "block_jacobi_preconditioner",
            "neumann_preconditioner", "extract_diag_blocks"]
-
-# JAX operand types whose port is still queued (ROADMAP queue 1).
-_NOT_PORTED = {
-    "SparseBSR": "ROADMAP item 12 (core/bsr.py)",
-    "SparseTiledCOO": "ROADMAP item 12 (core/tiled.py)",
-}
-
 
 def _diag_len(shape) -> int:
     return min(shape[0], shape[1])
@@ -54,13 +48,9 @@ def _scatter_diag(n: int, rows: Tensor, hit: Tensor, vals: Tensor) -> Tensor:
 
 def extract_diagonal(a) -> Tensor:
     """``diag(A)`` as a dense ``(min(shape),)`` vector of a rank-2
-    :class:`SparseCOO`, :class:`SparseCSR` or :class:`SparseDIA`.
+    :class:`SparseCOO`, :class:`SparseCSR`, :class:`SparseDIA`,
+    :class:`SparseBSR` (square blocks) or :class:`SparseTiledCOO`.
     Duplicate entries sum."""
-    name = type(a).__name__
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"extract_diagonal: {name} operands are not ported yet: "
-            f"{_NOT_PORTED[name]}")
     if isinstance(a, SparseCOO):
         if a.rank != 2:
             raise SpSparseError("extract_diagonal requires a rank-2 array")
@@ -76,6 +66,30 @@ def extract_diagonal(a) -> Tensor:
         if 0 in a.offsets:
             return a.data[a.offsets.index(0), :n]
         return torch.zeros(n, dtype=a.data.dtype, device=a.device)
+    if isinstance(a, SparseBSR):
+        bh, bw = a.block_shape
+        if bh != bw:
+            raise SpSparseError(
+                "extract_diagonal on BSR requires square blocks")
+        n = _diag_len(a.shape)
+        nb = -(-n // bh)
+        # Block k carries main-diagonal entries iff its column is its row.
+        brow = a.block_rows().long()
+        hit = a.valid_mask() & (a.bcols.long() == brow)
+        bdiag = torch.diagonal(a.blocks, dim1=1, dim2=2)       # (cap, bh)
+        dest = brow[:, None] * bh + torch.arange(bh, device=a.device)
+        out = _scatter_diag(nb * bh, dest.reshape(-1),
+                            hit[:, None].expand(-1, bh).reshape(-1),
+                            bdiag.reshape(-1))
+        return out[:n]
+    if isinstance(a, SparseTiledCOO):
+        n = _diag_len(a.shape)
+        live = a.valid_mask()[:, None] & (a.vals != 0)
+        on_diag = ((a.tile_row == a.tile_col)[:, None]
+                   & (a.rows == a.cols) & live)
+        gi = a.tile_row[:, None].long() * TILE + a.rows.long()
+        return _scatter_diag(n, gi.reshape(-1), on_diag.reshape(-1),
+                             a.vals.reshape(-1))
     raise SpSparseError(f"extract_diagonal: unsupported type {type(a)!r}")
 
 

@@ -110,11 +110,11 @@ def test_best_spmv_routes_dia_to_k1_plain_on_cpu():
 
 
 def test_best_spmv_rejects_unported_formats():
-    class PreparedGeneral:     # the JAX package's type name, not ported yet
+    class PreparedShuffleSpMV:   # the JAX package's type name, not ported yet
         pass
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        best_spmv(PreparedGeneral(), torch.zeros(3))
+    with pytest.raises(NotImplementedError, match="ROADMAP item 18"):
+        best_spmv(PreparedShuffleSpMV(), torch.zeros(3))
 
 
 def _prep(n=16, K=3, dtype=torch.float32):

@@ -590,10 +590,26 @@ def test_extract_diagonal_and_blocks_match_jax():
 
 @pytest.mark.parametrize("name", ["SparseBSR", "SparseTiledCOO"])
 def test_unported_formats_name_their_roadmap_item(name):
-    fake = type(name, (), {})()
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-        ts.extract_diagonal(fake)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
+    # BSR and tiled operands are ported (slice 3): extract_diagonal and
+    # aslinearoperator match the JAX package on them. The one operand type
+    # still queued, PreparedShuffleSpMV, names its ROADMAP item.
+    rng = np.random.default_rng(33)
+    A = np.where(rng.random((24, 24)) < 0.3, rng.uniform(-1, 1, (24, 24)),
+                 0).astype(np.float32)
+    np.fill_diagonal(A, rng.uniform(1, 2, 24))
+    jc, tc = coo_both(A, dtype=np.float32)
+    conv = {"SparseBSR": lambda pkg, a: pkg.to_bsr(a, (8, 8)),
+            "SparseTiledCOO": lambda pkg, a: pkg.to_tiled(a)}[name]
+    ja, ta = conv(jsp, jc), conv(tsp, tc)
+    assert type(ta).__name__ == name
+    f32 = dict(rtol=1e-6, atol=1e-6)
+    close(ts.extract_diagonal(ta), js.extract_diagonal(ja), rtol=0, atol=0)
+    x = rng.uniform(-1, 1, 24).astype(np.float32)
+    close(ts.aslinearoperator(ta).matvec(torch.from_numpy(x)),
+          js.aslinearoperator(ja).matvec(jnp.asarray(x)), **f32)
+    close(ts.aslinearoperator(ta).matvec(torch.from_numpy(x)), A @ x, **f32)
+    fake = type("PreparedShuffleSpMV", (), {})()
+    with pytest.raises(NotImplementedError, match="ROADMAP item 18"):
         ts.aslinearoperator(fake)
 
 

@@ -4,11 +4,14 @@
     python3 tests_gpu/profile_kernels.py
 
 Builds the banded benchmark matrix ``B`` (n = 2**20, offsets -5..5, f32,
-values from ``default_rng(0)``) and ``S = (B + B^T)/2`` as ``chip_smoke.py``
-does, runs each wrapper (and the library calls that ``chip_smoke.py`` uses
-as yardsticks) 10 times under ``torch.profiler``, and prints one JSON line
-per workload: the CUDA kernels it ran, their count and device time, and the
-device time per call. Needs one CUDA card.
+values from ``default_rng(0)``) and ``S = (B + B^T)/2``, and bench config
+3's regridding matrix (m = 2**18, 50 entries a row, X of 128 columns) with
+its tiled layouts, and the one_hot route's layout of ``chip_smoke.py``'s
+phase 14, as ``chip_smoke.py`` does; runs each wrapper (and the
+library calls that ``chip_smoke.py`` uses as yardsticks) 10 times under
+``torch.profiler``, and prints one JSON line per workload: the CUDA kernels
+it ran, their count and device time, and the device time per call. Needs
+one CUDA card.
 """
 
 from __future__ import annotations
@@ -25,7 +28,11 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke as cs  # noqa: E402
 import spsparse_torch as sp  # noqa: E402
 from spsparse_torch.ops import (cg_solve_dia, prepare_dia,  # noqa: E402
-                                spmm_dia_mrhs, spmv_dia_chain,
+                                prepare_general, prepare_tiled_dense,
+                                prepare_tiled_rows,
+                                prepare_tiled_window, spmm_dia_mrhs,
+                                spmm_tiled_dense, spmm_tiled_onehot,
+                                spmm_tiled_window, spmv_dia_chain,
                                 spmv_dia_stream)
 
 CALLS = 10
@@ -62,6 +69,22 @@ def main() -> int:
     X = torch.from_numpy(rng.uniform(-1, 1, (cs.RHS, n))
                          .astype(np.float32)).to(dev)
     A_csr = cs.library_csr(torch, n, dev)
+    m = cs.SPMM_M
+    rr, cc, vals, Xh = cs.regrid_entries(m)
+    tl = sp.to_tiled(cs.build_coo(sp, dev, (m, 2 * m), rr, cc, vals))
+    X3 = torch.from_numpy(Xh).to(dev)
+    w32 = prepare_tiled_window(tl, dtype=torch.float32)
+    w16 = prepare_tiled_window(tl, group=cs.WINDOW_GROUP)
+    d32 = prepare_tiled_dense(tl)
+    d16 = prepare_tiled_dense(tl, dtype=torch.bfloat16)
+    rows = prepare_tiled_rows(tl)
+    A3_csr = cs.library_csr_of(torch, rr, cc, vals, (m, 2 * m), dev)
+    ro, co, vo = cs.onehot_entries(m)
+    pg = prepare_general(cs.build_coo(sp, dev, (m, m), ro, co, vo))
+    assert pg.kernel == "one_hot" and pg.order is None, pg.kernel
+    Xo = torch.from_numpy(np.random.default_rng(6).uniform(
+        -1, 1, (m, cs.SPMM_N)).astype(np.float32)).to(dev)
+    Ao_csr = cs.library_csr_of(torch, ro, co, vo, (m, m), dev)
     work = {
         "K1 f32": lambda: spmv_dia_stream(pf, x),
         "K1 bf16": lambda: spmv_dia_stream(pb, x),
@@ -73,6 +96,14 @@ def main() -> int:
             prep_s, x, iters=cs.CG_ITERS, shift=cs.SHIFT),
         "library A_csr @ x": lambda: A_csr @ x,
         "library A_csr @ X.T": lambda: A_csr @ X.T,
+        "K5 f32, config 3 (group 16)": lambda: spmm_tiled_window(w32, X3),
+        "K5 bf16, config 3 (group 32)": lambda: spmm_tiled_window(w16, X3),
+        "K6 f32, config 3": lambda: spmm_tiled_dense(d32, X3),
+        "K6 bf16, config 3": lambda: spmm_tiled_dense(d16, X3),
+        "K7 f32, config 3": lambda: spmm_tiled_onehot(rows, X3),
+        "library A3_csr @ X, config 3": lambda: A3_csr @ X3,
+        "K7 f32, one_hot route": lambda: spmm_tiled_onehot(pg.prep, Xo),
+        "library Ao_csr @ X, one_hot route": lambda: Ao_csr @ Xo,
     }
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]

@@ -9,7 +9,10 @@ plain versions against JAX). Tolerances: K1 and K3 rtol/atol 1e-5 (the
 kernels fuse multiply-adds, the plain versions round each product); K2
 rtol 1e-4 / atol 1e-6 over up to 7 iterations; K4 1e-4 of max|x| after 40
 CG iterations against its plain version and the composed solve over K1
-(the rounding differences compound through the recurrences).
+(the rounding differences compound through the recurrences). K5-K7
+(tiled general SpMM): float32 rtol 1e-5 with atol 1e-5 of max|ref|;
+bfloat16 blocks atol 1e-4 of max|ref| (exact products, float32 sums in
+another order); gradients rtol/atol 1e-4.
 """
 
 import numpy as np
@@ -200,3 +203,159 @@ def test_k4_zero_rhs_and_zero_iters():
     x, rs = cg_solve_dia(prep, b, iters=0)
     torch.testing.assert_close(rs, b.dot(b), rtol=1e-5, atol=0)
     assert torch.equal(x, torch.zeros_like(x))
+
+
+# ----------------------------------------------------------------------
+# K5-K7: tiled general SpMM
+# ----------------------------------------------------------------------
+def regrid(dev, m, k, seed, spread=100, empty_every=0):
+    """A column-local matrix (row r near column 2r) on ``dev``; with
+    ``empty_every`` only every such row holds entries."""
+    import spsparse_torch as sp
+
+    rng = np.random.default_rng(seed)
+    rows = np.arange(0, m, empty_every or 1)
+    rr = np.repeat(rows, k)
+    cc = np.clip(rr * 2 + rng.integers(-spread, spread + 1, rr.size), 0,
+                 2 * m - 1)
+    b = sp.CooBuilder((m, 2 * m), dtype=np.float32)
+    b.add_many(np.stack([rr, cc], 1),
+               rng.uniform(-1, 1, rr.size).astype(np.float32))
+    return sp.to_tiled(b.build(device=dev))
+
+
+TILED_CASES = [
+    # (m, entries a row, N, every-nth row holds entries)
+    (1000, 6, 128, 0),
+    (777, 9, 100, 0),        # ragged rows, columns and N
+    (1500, 4, 300, 3),       # N over two chunks; empty rows
+    (900, 5, 1, 2),          # a vector RHS
+    (5000, 3, 33, 0),
+]
+
+
+def _tol(dtype):
+    # float32: the kernels fuse multiply-adds and sum in another order;
+    # bfloat16 blocks: exact products, float32 sums of up to 128 k terms.
+    return dict(rtol=1e-5, atol=1e-5) if dtype == "float32" else dict(
+        rtol=0, atol=1e-4)
+
+
+def _scaled(tol, ref):
+    return dict(rtol=tol["rtol"], atol=tol["atol"] * max(
+        float(ref.abs().max()), 1.0))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,k,N,empty", TILED_CASES)
+def test_k6_matches_plain(dtype, m, k, N, empty):
+    from spsparse_torch.ops import (prepare_tiled_dense, spmm_tiled_dense,
+                                    spmm_tiled_dense_reference)
+
+    dev = _cuda()
+    tl = regrid(dev, m, k, m, empty_every=empty)
+    prep = prepare_tiled_dense(tl, dtype=getattr(torch, dtype))
+    X = torch.from_numpy(np.random.default_rng(1).uniform(
+        -1, 1, (2 * m, N)).astype(np.float32)).to(dev)
+    before = spmm_tiled_dense.launches
+    Y = spmm_tiled_dense(prep, X)
+    torch.cuda.synchronize()
+    assert spmm_tiled_dense.launches == before + 1
+    assert Y.shape == (m, N) and Y.dtype == torch.float32
+    ref = spmm_tiled_dense_reference(prep, X)
+    torch.testing.assert_close(Y, ref, **_scaled(_tol(dtype), ref))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("group", [3, 16])
+@pytest.mark.parametrize("m,k,N,empty", TILED_CASES)
+def test_k5_matches_plain_and_k6(dtype, group, m, k, N, empty):
+    from spsparse_torch.ops import (prepare_tiled_window, spmm_tiled_dense,
+                                    spmm_tiled_window,
+                                    spmm_tiled_window_reference,
+                                    to_tiled_dense)
+
+    dev = _cuda()
+    tl = regrid(dev, m, k, m, empty_every=empty)
+    prep = prepare_tiled_window(tl, group=group, dtype=getattr(torch, dtype))
+    X = torch.from_numpy(np.random.default_rng(2).uniform(
+        -1, 1, (2 * m, N)).astype(np.float32)).to(dev)
+    before = spmm_tiled_window.launches
+    Y = spmm_tiled_window(prep, X)
+    torch.cuda.synchronize()
+    assert spmm_tiled_window.launches == before + 1
+    assert Y.shape == (m, N)
+    ref = spmm_tiled_window_reference(prep, X)
+    torch.testing.assert_close(Y, ref, **_scaled(_tol(dtype), ref))
+    torch.testing.assert_close(Y, spmm_tiled_dense(to_tiled_dense(prep), X),
+                               **_scaled(_tol(dtype), ref))
+
+
+@pytest.mark.parametrize("m,k,N,empty", TILED_CASES)
+def test_k7_matches_plain(m, k, N, empty):
+    from spsparse_torch.ops import (prepare_tiled_rows, spmm_tiled_onehot,
+                                    spmm_tiled_onehot_reference)
+
+    dev = _cuda()
+    tl = regrid(dev, m, k, m, empty_every=empty)
+    prep = prepare_tiled_rows(tl)
+    X = torch.from_numpy(np.random.default_rng(3).uniform(
+        -1, 1, (2 * m, N)).astype(np.float32)).to(dev)
+    before = spmm_tiled_onehot.launches
+    Y = spmm_tiled_onehot(prep, X)
+    torch.cuda.synchronize()
+    assert spmm_tiled_onehot.launches == before + 1
+    ref = spmm_tiled_onehot_reference(prep, X)
+    torch.testing.assert_close(Y, ref, **_scaled(_tol("float32"), ref))
+    assert torch.equal(Y, spmm_tiled_onehot(prep, X))   # fixed order
+
+
+def test_tiled_cuda_tensors_never_reach_plain_versions(monkeypatch):
+    import spsparse_torch.ops.tiled_spmm as ts_mod
+    import spsparse_torch.ops.tiled_window as tw_mod
+    from spsparse_torch.ops import (prepare_tiled_rows, prepare_tiled_window,
+                                    spmm_tiled_onehot, spmm_tiled_window)
+
+    dev = _cuda()
+    tl = regrid(dev, 1000, 6, 5)
+    X = torch.ones((2000, 16), device=dev)
+    want_w = tw_mod.spmm_tiled_window_reference(
+        prepare_tiled_window(tl, group=4), X)
+    want_r = ts_mod.spmm_tiled_onehot_reference(prepare_tiled_rows(tl), X)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached a plain version")
+
+    for mod, name in ((ts_mod, "spmm_tiled_onehot_reference"),
+                      (ts_mod, "spmm_tiled_dense_reference"),
+                      (tw_mod, "spmm_tiled_window_reference"),
+                      (tw_mod, "spmm_tiled_dense_reference")):
+        monkeypatch.setattr(mod, name, refuse)
+    torch.testing.assert_close(
+        spmm_tiled_window(prepare_tiled_window(tl, group=4), X), want_w,
+        rtol=0, atol=1e-4 * float(want_w.abs().max()))
+    torch.testing.assert_close(spmm_tiled_onehot(prepare_tiled_rows(tl), X),
+                               want_r, rtol=1e-5, atol=1e-5)
+
+
+def test_tiled_window_grads_match_plain():
+    import dataclasses
+
+    from spsparse_torch.ops import prepare_tiled_window, spmm_tiled_window
+
+    dev = _cuda()
+    W = torch.from_numpy(np.random.default_rng(4).uniform(
+        -1, 1, (700, 40)).astype(np.float32))
+    X = torch.from_numpy(np.random.default_rng(5).uniform(
+        -1, 1, (1400, 40)).astype(np.float32))
+    grads = []
+    for d in (dev, "cpu"):
+        prep = prepare_tiled_window(regrid(d, 700, 5, 6), group=3,
+                                    dtype=torch.float32)
+        blocks = prep.blocks.clone().requires_grad_(True)
+        prep = dataclasses.replace(prep, blocks=blocks)
+        Xt = X.to(d).requires_grad_(True)
+        (W.to(d) * spmm_tiled_window(prep, Xt)).sum().backward()
+        grads.append((blocks.grad.cpu(), Xt.grad.cpu()))
+    for g_dev, g_cpu in zip(*grads):
+        torch.testing.assert_close(g_dev, g_cpu, rtol=1e-4, atol=1e-4)
