@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the spsparse_torch main path, solve path and SpMM path once on one
-CUDA card and check them.
+"""Drive the spsparse_torch main path, solve path, SpMM path and SpGEMM path
+once on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -58,12 +58,36 @@ from ``default_rng(0)``):
     ``gather_ell``) against scipy.
 15. One backward through ``spmm_general`` on the dense-window layout at
     2**13 rows, against the plain backward on the CPU.
-16. Time every kernel against its plain version (CUDA events, in turns:
+
+The SpGEMM path (``spgemm_path``), sparse x sparse products at bench config
+4's widths (``bench.py:685-696``: 2**17 rows, zipf(2.0) row lengths capped
+at 24, columns ``2r + U{0,1,2}`` of 2**18, values uniform(0, 1), all from
+``default_rng(0)``), against float64 scipy products of the consolidated
+operand:
+
+16. Build A through ``CooBuilder``, ``consolidate`` (193,565 entries) and
+    ``to_tiled`` (2,540 tiles); ``plan_spgemm_caps``.
+17. K8: ``best_spgemm(A, A, transpose_b=True)`` (routes ``tiled`` and
+    ``window``) in float32 and ``spgemm_tiled`` with bfloat16 blocks
+    against scipy; the band of ``plan_window_spgemm`` through K8 against
+    its plain version in both types, its dead slots exactly zero.
+18. K9 and K13: ``spgemm_tiled(A, A, transpose_b=True, use_window=False)``
+    (config 4's pair plan), ``C = A A^T``, ``best_spgemm(C, C)`` and
+    ``coo_matrix_power(C, 3)`` (the routes of each product logged) against
+    scipy; K9 and K13 on both pair plans, in float32 and bfloat16, against
+    the plain version and each other.
+19. ESC: ``spgemm_aat`` and ``plan_esc`` (device and host) +
+    ``spgemm_planned`` against scipy.
+20. Hand-off: the band's ``TiledBlocks.to_prepared_dense()`` through K6
+    with X of 128 columns, against scipy.
+21. Time every kernel against its plain version (CUDA events, in turns:
     plain, kernel, kernel, plain), and one PyTorch library call computing
     the same function where there is one (``torch.sparse_csr_tensor``
     products; none for K4, whose solve is no single library call). K7 is
     timed on config 3's tiles and on the one_hot route's layout of phase
-    14, the traffic ``prepare_general`` sends it.
+    14, the traffic ``prepare_general`` sends it. K8, K9 and K13 at config
+    4, with cuSPARSE's CSR x CSR SpGEMM as the yardstick; ``spgemm_tiled``
+    end to end, the ESC ``spgemm_aat`` and the planned apply.
 
 The launch counters of the kernel wrappers are reset before each path and
 read after it; a kernel of the path launched no time there fails the run.
@@ -101,6 +125,8 @@ TILE_SIDE = 128
 TILE_ELEMS = TILE_SIDE * TILE_SIDE
 SAMPLED_ROWS = 4096
 GRAD_M = 1 << 13
+CFG4_N = 1 << 17     # rows of bench config 4's regridding matrix
+SPGEMM_X = 128       # columns of X in the SpGEMM hand-off to K6
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12     # H100 SXM bfloat16 on the tensor cores
@@ -127,6 +153,15 @@ KERNELS = {
     "spmm_tiled_onehot": dict(
         route="cuda", source="spsparse_torch/csrc/tiled.cu",
         replaces="spsparse_tpu/ops/pallas_tiled.py:112"),
+    "spgemm_window": dict(
+        route="cuda", source="spsparse_torch/csrc/spgemm.cu",
+        replaces="spsparse_tpu/ops/spgemm_window.py:227"),
+    "spgemm_tiled_pairs": dict(
+        route="cuda", source="spsparse_torch/csrc/spgemm.cu",
+        replaces="spsparse_tpu/ops/spgemm_tiled.py:303"),
+    "spgemm_tiled_stream": dict(
+        route="cuda", source="spsparse_torch/csrc/spgemm.cu",
+        replaces="spsparse_tpu/ops/spgemm_tiled.py:350"),
 }
 
 
@@ -813,6 +848,248 @@ def spmm_path(torch, sp, dev, m=SPMM_M, m_onehot=SPMM_M, m_3b=CFG3B_M,
     return {"reg": reg, "win": win, "dense": dense, "onehot": onehot}
 
 
+def cfg4_entries(n: int, seed: int = 0):
+    """Bench config 4's matrix (``bench.py:config4_spgemm``): row r holds
+    ``min(zipf(2.0), 24)`` entries at columns ``min(2r + U{0,1,2}, 2n-1)``
+    with values uniform(0, 1), all from one ``default_rng(seed)``. Returns
+    ``(rows, cols, vals)``; the builder stores the values as float32."""
+    rng = np.random.default_rng(seed)
+    k = np.minimum(rng.zipf(2.0, n), 24).astype(np.int64)
+    r = np.repeat(np.arange(n), k)
+    c = np.minimum(r * 2 + rng.integers(0, 3, r.size), n * 2 - 1)
+    return r, c, rng.uniform(0, 1, r.size)
+
+
+def traced_routes(fn):
+    """``(fn(), [(entry point, route), ...])``: the routes that the SpGEMM
+    entry points record in the host event log while ``fn`` runs, in the
+    order they finish."""
+    from spsparse_torch.utils.trace import enable_event_log, get_event_log
+
+    enable_event_log(True)
+    try:
+        out = fn()
+        events = get_event_log()
+    finally:
+        enable_event_log(False)
+    return out, [(e["op"].split(".")[-1], e["route"]) for e in events
+                 if "route" in e]
+
+
+def check_coo(got, ref, what: str, rtol: float, atol_rel: float) -> float:
+    """A sparse result against a float64 scipy product: the same pattern
+    and values within ``rtol*|ref| + atol_rel*max|ref|``."""
+    g = _csr_of(got)
+    g.sort_indices()
+    ref = ref.tocsr()
+    ref.sort_indices()
+    require(g.nnz == ref.nnz and np.array_equal(g.indptr, ref.indptr)
+            and np.array_equal(g.indices, ref.indices),
+            f"{what}: pattern differs from scipy (nnz {g.nnz} vs {ref.nnz})")
+    ok, err = close(g.data, ref.data, rtol, atol_rel)
+    require(ok, f"{what} off the float64 scipy product (max abs err {err})")
+    return err
+
+
+def phase_cfg4(torch, sp, dev, n):
+    """Phase 16: config 4's A through CooBuilder, consolidate, to_tiled."""
+    from spsparse_torch.ops import plan_spgemm_caps
+
+    r, c, v = cfg4_entries(n)
+    b = sp.CooBuilder((n, 2 * n), dtype=np.float32)
+    b.add_many(np.stack([r, c], 1), v)
+    raw = b.build(device=dev)
+    A = sp.consolidate(raw)
+    tl = sp.to_tiled(A)
+    caps = plan_spgemm_caps(raw, raw, transpose_b=True)
+    sync(torch, dev)
+    if n == CFG4_N:
+        require((A.nnz, tl.n_tiles, caps[0]) == (193565, 2540, 262144),
+                f"config 4: nnz {A.nnz}, tiles {tl.n_tiles}, products "
+                f"{caps[0]} (expected 193565, 2540, 262144)")
+    A64 = _csr_of(A)
+    return {"A": A, "tl": tl, "caps": caps, "n": n, "raw_entries": r.size,
+            "AAT": (A64 @ A64.T).tocsr(),
+            "fill": int((tl.vals != 0).sum()) / tl.n_tiles}
+
+
+def phase_band(torch, sp, dev, cfg):
+    """Phase 17: K8 through best_spgemm (f32) and spgemm_tiled (bf16)
+    against scipy; the planned band against its plain version, dead slots
+    exactly zero."""
+    from spsparse_torch.ops import (best_spgemm, plan_window_spgemm,
+                                    prepare_tiled_dense, spgemm_tiled,
+                                    spgemm_window, spgemm_window_reference)
+
+    A, n = cfg["A"], cfg["n"]
+    C, routes = traced_routes(lambda: best_spgemm(A, A, transpose_b=True))
+    sync(torch, dev)
+    require(routes == [("spgemm_tiled", "window"), ("best_spgemm", "tiled")],
+            f"best_spgemm(A, A^T) routes {routes}")
+    err = {"f32": check_coo(C, cfg["AAT"], "best_spgemm(A, A^T)", 1e-5,
+                            1e-5)}
+    Cb = spgemm_tiled(A, A, transpose_b=True, dtype=torch.bfloat16)
+    sync(torch, dev)
+    # bfloat16 rounds A's values; the check allows 2e-2 of max|ref|.
+    err["bf16"] = check_coo(Cb, cfg["AAT"], "spgemm_tiled bf16 A A^T", 0.0,
+                            2e-2)
+    out = {"C": C, "err": err, "band": {}, "plan": {}, "prep": {}}
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        prep = prepare_tiled_dense(cfg["tl"], dtype=dtype)
+        plan = plan_window_spgemm(prep.tcols, prep.tcols, nbc=prep.nbc,
+                                  out_shape=(n, n), dtype=dtype)
+        band = spgemm_window(plan, prep.blocks)
+        ref = spgemm_window_reference(plan, prep.blocks)
+        sync(torch, dev)
+        err[f"band_{name}"] = check_pair(band, ref, f"K8 {name} vs plain",
+                                         name == "bf16")
+        dead = torch.from_numpy(plan.cnt == 0).to(band.device)
+        require(not bool(band.reshape(-1, TILE_ELEMS)[dead].any()),
+                f"K8 {name}: a band slot with no pair is not exactly zero")
+        out["band"][name], out["plan"][name] = band, plan
+        out["prep"][name] = prep
+    return out
+
+
+def phase_pairs(torch, sp, dev, cfg, k8):
+    """Phase 18: K9 through spgemm_tiled (config 4's pair plan),
+    best_spgemm(C, C) and coo_matrix_power(C, 3) against scipy; K9 and K13
+    on both pair plans against the plain version and each other."""
+    from spsparse_torch.ops import (best_spgemm, coo_matrix_power,
+                                    densify_tiled, plan_tiled_spgemm,
+                                    spgemm_tiled, spgemm_tiled_pairs,
+                                    spgemm_tiled_reference,
+                                    spgemm_tiled_stream)
+    from spsparse_torch.ops.spgemm_tiled import tiled_blocks_to_coo
+
+    A, C = cfg["A"], k8["C"]
+    P, routes = traced_routes(lambda: spgemm_tiled(
+        A, A, transpose_b=True, use_window=False))
+    sync(torch, dev)
+    require(routes == [("spgemm_tiled", "pairs")],
+            f"spgemm_tiled(use_window=False) routes {routes}")
+    err = {"aat": check_coo(P, cfg["AAT"], "spgemm_tiled pairs A A^T", 1e-5,
+                            1e-5)}
+    C64 = _csr_of(C)
+    CC_ref = (C64 @ C64).tocsr()
+    CC, cc_routes = traced_routes(lambda: best_spgemm(C, C))
+    sync(torch, dev)
+    require(cc_routes == [("spgemm_tiled", "pairs"), ("best_spgemm",
+                                                      "tiled")],
+            f"best_spgemm(C, C) routes {cc_routes}")
+    err["cc"] = check_coo(CC, CC_ref, "best_spgemm(C, C)", 1e-5, 1e-5)
+    C3, power_routes = traced_routes(lambda: coo_matrix_power(C, 3))
+    sync(torch, dev)
+    err["c3"] = check_coo(C3, C64 @ CC_ref, "coo_matrix_power(C, 3)", 1e-5,
+                          1e-5)
+
+    tc = densify_tiled(sp.to_tiled(C))
+    ta = {"f32": densify_tiled(cfg["tl"]),
+          "bf16": densify_tiled(cfg["tl"], dtype=torch.bfloat16)}
+    plans = {"A A^T": plan_tiled_spgemm(ta["f32"], ta["f32"],
+                                        transpose_b=True),
+             "C C": plan_tiled_spgemm(tc, tc)}
+    runs = [("A A^T", "f32", ta["f32"], cfg["AAT"]),
+            ("A A^T", "bf16", ta["bf16"], None),
+            ("C C", "f32", tc, CC_ref)]
+    out = {"err": err, "routes": {"A A^T": routes, "C C": cc_routes,
+                                  "C^3": power_routes},
+           "plans": plans, "blocks": {}, "bitwise_k9_k13": {}}
+    for label, dname, X, oracle in runs:
+        plan = plans[label]
+        bf16 = dname == "bf16"
+        k9 = spgemm_tiled_pairs(X, X, plan)
+        k13 = spgemm_tiled_stream(X, X, plan)
+        ref = spgemm_tiled_reference(X, X, plan)
+        sync(torch, dev)
+        what = f"{label} {dname}"
+        e = max(check_pair(k9.blocks, ref.blocks, f"K9 {what} vs plain",
+                           bf16),
+                check_pair(k13.blocks, ref.blocks, f"K13 {what} vs plain",
+                           bf16),
+                check_pair(k13.blocks, k9.blocks, f"K13 {what} vs K9", bf16))
+        if oracle is not None:
+            e = max(e, check_coo(tiled_blocks_to_coo(k13), oracle,
+                                 f"K13 {what}", 1e-5, 1e-5))
+        err[f"{label} {dname}"] = e
+        out["bitwise_k9_k13"][what] = bool(torch.equal(k9.blocks,
+                                                       k13.blocks))
+        out["blocks"][(label, dname)] = X
+    return out
+
+
+def phase_esc(torch, sp, dev, cfg):
+    """Phase 19: the ESC Gram product and the planned ESC (device and host
+    plans) against scipy."""
+    from spsparse_torch.ops import plan_esc, spgemm_aat, spgemm_planned
+
+    A = cfg["A"]
+    E = spgemm_aat(A)
+    sync(torch, dev)
+    err = {"spgemm_aat": check_coo(E, cfg["AAT"], "spgemm_aat", 1e-5, 1e-5)}
+    plans = {}
+    for host in (False, True):
+        plan, acon, bcon = plan_esc(A, A, transpose_b=True, host=host)
+        Q = spgemm_planned(plan, acon.vals, bcon.vals)
+        sync(torch, dev)
+        key = "host" if host else "device"
+        err[key] = check_coo(Q, cfg["AAT"], f"spgemm_planned ({key} plan)",
+                             1e-5, 1e-5)
+        plans[key] = (plan, acon, bcon)
+    return {"err": err, "plans": plans}
+
+
+def phase_handoff(torch, sp, dev, cfg, k8):
+    """Phase 20: C's band as TiledBlocks -> to_prepared_dense -> K6."""
+    from spsparse_torch.ops import spmm_tiled_dense
+    from spsparse_torch.ops.spgemm_window import band_to_tiled_blocks
+
+    n = cfg["n"]
+    prep = band_to_tiled_blocks(k8["band"]["f32"],
+                                k8["plan"]["f32"]).to_prepared_dense()
+    X = np.random.default_rng(9).uniform(-1, 1, (n, SPGEMM_X)).astype(
+        np.float32)
+    Y = spmm_tiled_dense(prep, torch.from_numpy(X).to(dev))
+    sync(torch, dev)
+    ok, err = close(Y.cpu().numpy(), cfg["AAT"] @ X.astype(np.float64),
+                    1e-5, 1e-5)
+    require(ok, f"C = A A^T blocks through K6 off scipy (max abs err {err})")
+    return {"err": err, "tiles": int((prep.tcols < prep.nbc).sum())}
+
+
+def spgemm_path(torch, sp, dev, n=CFG4_N) -> dict:
+    """Phases 16-20 on ``dev``; returns what the timing phase reuses."""
+    t0 = time.perf_counter()
+    cfg = phase_cfg4(torch, sp, dev, n)
+    log(f"phase 16 config 4: {cfg['raw_entries']} entries -> nnz "
+        f"{cfg['A'].nnz} in {cfg['tl'].n_tiles} tiles (fill "
+        f"{cfg['fill']!r}); plan_spgemm_caps {cfg['caps']}; A A^T nnz "
+        f"{cfg['AAT'].nnz} ({time.perf_counter() - t0:.3f} s)")
+    t0 = time.perf_counter()
+    k8 = phase_band(torch, sp, dev, cfg)
+    plan = k8["plan"]["f32"]
+    log(f"phase 17 K8: W {plan.W}, live pairs {plan.n_live}, n_dots "
+        f"{plan.n_dots}, band {plan.nbr_pad} x {plan.nband}; max abs err "
+        f"{k8['err']} ({time.perf_counter() - t0:.3f} s)")
+    t0 = time.perf_counter()
+    pairs = phase_pairs(torch, sp, dev, cfg, k8)
+    pt = pairs["plans"]
+    log(f"phase 18 K9/K13: pair plans A A^T {pt['A A^T'].n_pairs} pairs -> "
+        f"{pt['A A^T'].n_out_tiles} tiles, C C {pt['C C'].n_pairs} pairs -> "
+        f"{pt['C C'].n_out_tiles} tiles; routes {pairs['routes']}; K13 == "
+        f"K9 bitwise {pairs['bitwise_k9_k13']}; max abs err {pairs['err']} "
+        f"({time.perf_counter() - t0:.3f} s)")
+    t0 = time.perf_counter()
+    esc = phase_esc(torch, sp, dev, cfg)
+    log(f"phase 19 ESC: max abs err {esc['err']} "
+        f"({time.perf_counter() - t0:.3f} s)")
+    t0 = time.perf_counter()
+    hand = phase_handoff(torch, sp, dev, cfg, k8)
+    log(f"phase 20 hand-off to K6: {hand['tiles']} tiles, max abs err "
+        f"{hand['err']!r} ({time.perf_counter() - t0:.3f} s)")
+    return {"cfg": cfg, "k8": k8, "pairs": pairs, "esc": esc}
+
+
 def time_ms(torch, fn, *, reps: int = 15, inner: int = 10,
             warmup: int = 3) -> list[float]:
     """Per-call milliseconds of ``reps`` CUDA-event-timed runs of ``inner``
@@ -869,15 +1146,21 @@ def bound_ms(nbytes: float, flops: float,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def library_csr_of(torch, rows, cols, vals, shape, dev):
-    """``torch.sparse_csr_tensor`` of an entry list on the card (float32):
-    the library yardstick, timed here and used nowhere in the port."""
-    A = csr_host(rows, cols, vals, shape).astype(np.float32)
-    A.sum_duplicates()
+def torch_csr(torch, M, dev):
+    """``torch.sparse_csr_tensor`` (float32, on ``dev``) of a scipy matrix:
+    the library yardsticks' operand, used nowhere in the port."""
+    M = M.tocsr().astype(np.float32)
+    M.sum_duplicates()
     return torch.sparse_csr_tensor(
-        torch.from_numpy(A.indptr.astype(np.int64)).to(dev),
-        torch.from_numpy(A.indices.astype(np.int64)).to(dev),
-        torch.from_numpy(A.data).to(dev), size=shape, check_invariants=True)
+        torch.from_numpy(M.indptr.astype(np.int64)).to(dev),
+        torch.from_numpy(M.indices.astype(np.int64)).to(dev),
+        torch.from_numpy(M.data).to(dev), size=M.shape,
+        check_invariants=True)
+
+
+def library_csr_of(torch, rows, cols, vals, shape, dev):
+    """:func:`torch_csr` of an entry list."""
+    return torch_csr(torch, csr_host(rows, cols, vals, shape), dev)
 
 
 def tile_counts(torch, prep) -> tuple[int, int]:
@@ -978,6 +1261,115 @@ def spmm_timings(torch, spmm, launches: dict) -> list[dict]:
     return rows
 
 
+def library_spgemm_ms(torch, left, right, dev):
+    """``(ms, error)`` of one ``torch.sparse`` CSR x CSR float32 product on
+    the card (cuSPARSE's SpGEMM, the whole product, output pattern
+    included) of scipy operands: the yardstick of K8, K9 and K13, used
+    nowhere in the port. ``(None, message)`` where this PyTorch refuses
+    it."""
+    try:
+        L, R = torch_csr(torch, left, dev), torch_csr(torch, right, dev)
+        return float(np.median(time_ms(torch, lambda: L @ R, reps=5,
+                                       inner=3, warmup=2))), None
+    except (RuntimeError, NotImplementedError) as exc:
+        return None, f"{type(exc).__name__}: {str(exc)[:200]}"
+
+
+def host_ms(torch, fn, reps: int = 3) -> float:
+    """Median host milliseconds of ``fn`` ending in a synchronize (after
+    one warm-up call): a call of an eager entry point, host work
+    included."""
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(out))
+
+
+def spgemm_timings(torch, spg, launches: dict) -> tuple[list[dict], dict]:
+    """Rows of the kernels line for K8, K9 and K13 at config 4, and the
+    end-to-end times of the SpGEMM entry points.
+
+    Bounds count what the product needs: K8 reads A's live blocks once
+    (the plan is shared) and writes the band once in float32, and does
+    2*128^3 operations per live pair; K9 and K13 read the distinct operand
+    tiles of their plan once, write the output tiles once, and do 2*128^3
+    operations per pair. The library yardstick is cuSPARSE's CSR x CSR
+    SpGEMM of the same operands, extraction of the output included."""
+    from spsparse_torch.ops import (plan_esc, spgemm_aat, spgemm_planned_vals,
+                                    spgemm_tiled, spgemm_tiled_pairs,
+                                    spgemm_tiled_reference,
+                                    spgemm_tiled_stream, spgemm_window,
+                                    spgemm_window_reference)
+
+    cfg, k8, pairs = spg["cfg"], spg["k8"], spg["pairs"]
+    A, n = cfg["A"], cfg["n"]
+    A64 = _csr_of(A)
+    C64 = _csr_of(k8["C"])
+    lib = {"A A^T": library_spgemm_ms(torch, A64, A64.T, "cuda"),
+           "C C": library_spgemm_ms(torch, C64, C64, "cuda")}
+    kw = dict(reps=5, inner=3, warmup=2)
+    flops_pair = 2 * TILE_SIDE ** 3
+    rows = []
+
+    def row(name, dtype, matrix, ms, plain_ms, nbytes, flops, err, label):
+        rate = BF16_FLOPS_PER_S if dtype == "bf16" else F32_FLOPS_PER_S
+        b_ms, b_by = bound_ms(nbytes, flops, rate)
+        lib_ms, lib_err = lib[label]
+        rows.append(dict(name=name, dtype=dtype, **KERNELS[name],
+                         launches=launches[name], max_abs_err=err, ms=ms,
+                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=lib_ms, library_error=lib_err,
+                         matrix=matrix, n=n, nnz=A.nnz))
+
+    for dname in ("f32", "bf16"):
+        plan, prep = k8["plan"][dname], k8["prep"][dname]
+        ms, plain_ms = compare_times(
+            torch, lambda: spgemm_window(plan, prep.blocks),
+            lambda: spgemm_window_reference(plan, prep.blocks), **kw)
+        live = int((prep.tcols < prep.nbc).sum())
+        nbytes = (live * TILE_ELEMS * prep.blocks.element_size()
+                  + plan.nbr_pad * plan.nband * TILE_ELEMS * 4)
+        row("spgemm_window", dname, "config 4 A A^T (band)", ms, plain_ms,
+            nbytes, plan.n_live * flops_pair, k8["err"][f"band_{dname}"],
+            "A A^T")
+    for label, dname in (("A A^T", "f32"), ("A A^T", "bf16"),
+                         ("C C", "f32")):
+        plan = pairs["plans"][label]
+        X = pairs["blocks"][(label, dname)]
+        tiles = np.unique(np.concatenate([plan.pa, plan.pb])).size
+        nbytes = (tiles * TILE_ELEMS * X.blocks.element_size()
+                  + plan.n_out_tiles * TILE_ELEMS * 4)
+        for name, fn in (("spgemm_tiled_pairs", spgemm_tiled_pairs),
+                         ("spgemm_tiled_stream", spgemm_tiled_stream)):
+            ms, plain_ms = compare_times(
+                torch, lambda: fn(X, X, plan),
+                lambda: spgemm_tiled_reference(X, X, plan), **kw)
+            row(name, dname, f"config 4 {label} (pair plan)", ms, plain_ms,
+                nbytes, plan.n_pairs * flops_pair,
+                pairs["err"][f"{label} {dname}"], label)
+
+    plan, acon, bcon = spg["esc"]["plans"]["device"]
+    ends = {
+        "spgemm_tiled(A, A, transpose_b=True) end to end (K8 route)":
+            host_ms(torch, lambda: spgemm_tiled(A, A, transpose_b=True)),
+        "spgemm_tiled(..., use_window=False) end to end (K9 route)":
+            host_ms(torch, lambda: spgemm_tiled(A, A, transpose_b=True,
+                                                use_window=False)),
+        "spgemm_aat (ESC) end to end": host_ms(torch, lambda: spgemm_aat(A)),
+        "plan_esc host plan": host_ms(torch, lambda: plan_esc(
+            A, A, transpose_b=True, host=True), reps=1),
+        "spgemm_planned_vals apply (events)": float(np.median(time_ms(
+            torch, lambda: spgemm_planned_vals(plan, acon.vals, bcon.vals),
+            **kw))),
+    }
+    return rows, {"end_to_end_ms": ends, "library_ms": lib}
+
+
 def library_csr(torch, n, dev):
     """``torch.sparse_csr_tensor`` of the benchmark matrix ``B`` on the
     card: the library yardstick, timed here and used nowhere in the port."""
@@ -1017,8 +1409,9 @@ def main() -> int:
                                     spmv_dia_chain_reference,
                                     spmv_dia_stream,
                                     spmv_dia_stream_reference)
-    from spsparse_torch.ops import (spmm_tiled_dense, spmm_tiled_onehot,
-                                    spmm_tiled_window)
+    from spsparse_torch.ops import (spgemm_tiled_pairs, spgemm_tiled_stream,
+                                    spgemm_window, spmm_tiled_dense,
+                                    spmm_tiled_onehot, spmm_tiled_window)
     from spsparse_torch.solvers import cg_solve
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1040,7 +1433,10 @@ def main() -> int:
                 "cg_solve_dia": cg_solve_dia,
                 "spmm_tiled_window": spmm_tiled_window,
                 "spmm_tiled_dense": spmm_tiled_dense,
-                "spmm_tiled_onehot": spmm_tiled_onehot}
+                "spmm_tiled_onehot": spmm_tiled_onehot,
+                "spgemm_window": spgemm_window,
+                "spgemm_tiled_pairs": spgemm_tiled_pairs,
+                "spgemm_tiled_stream": spgemm_tiled_stream}
     torch.cuda.reset_peak_memory_stats()
     state, main_counts = run_path(torch, wrappers, main_path, torch, sp, dev)
     log(f"main path kernel launches: {main_counts}; peak device memory "
@@ -1065,11 +1461,22 @@ def main() -> int:
     for name in spmm_kernels:
         require(spmm_counts[name] > 0,
                 f"kernel {name} was not launched on the spmm path")
+    torch.cuda.reset_peak_memory_stats()
+    spg, spgemm_counts = run_path(torch, wrappers, spgemm_path, torch, sp,
+                                  dev)
+    log(f"spgemm path kernel launches: {spgemm_counts}; peak device memory "
+        f"{torch.cuda.max_memory_allocated()} bytes")
+    spgemm_kernels = ("spgemm_window", "spgemm_tiled_pairs",
+                      "spgemm_tiled_stream")
+    for name in spgemm_kernels:
+        require(spgemm_counts[name] > 0,
+                f"kernel {name} was not launched on the spgemm path")
     launches = {**main_counts, **{k: solve_counts[k] for k in
                                   ("spmm_dia_mrhs", "cg_solve_dia")},
-                **{k: spmm_counts[k] for k in spmm_kernels}}
+                **{k: spmm_counts[k] for k in spmm_kernels},
+                **{k: spgemm_counts[k] for k in spgemm_kernels}}
 
-    # Phase 16: timing, kernel against plain version, in turns; the
+    # Phase 21: timing, kernel against plain version, in turns; the
     # library call where one PyTorch call computes the same function.
     t_timing = time.perf_counter()
     dia, mrhs = state["dia"], solve["mrhs"]
@@ -1133,8 +1540,10 @@ def main() -> int:
                      plain_ms=cg_ms["plain"], bound_ms=b_ms, bound_by=b_by,
                      library_ms=None))
     rows += spmm_timings(torch, spmm, launches)
+    spgemm_rows, spgemm_ends = spgemm_timings(torch, spg, launches)
+    rows += spgemm_rows
     torch.cuda.synchronize()
-    log(f"phase 16 timing ({time.perf_counter() - t_timing:.3f} s)")
+    log(f"phase 21 timing ({time.perf_counter() - t_timing:.3f} s)")
 
     for row in rows:
         print(json.dumps({
@@ -1150,6 +1559,9 @@ def main() -> int:
         "ms_per_iteration": cg_ms["composed"],
         "k4_ms_per_iteration": cg_ms["kernel"], "device": card,
         "nvidia_smi": smi}), flush=True)
+    print(json.dumps({"timing": "spgemm entry points, config 4",
+                      **spgemm_ends, "device": card, "nvidia_smi": smi}),
+          flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -39,6 +39,7 @@ from .core import (
     to_bsr,
     SparseTiledCOO,
     to_tiled,
+    coo_eye,
     default_device,
 )
 

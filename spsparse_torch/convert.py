@@ -17,6 +17,10 @@ the JAX side is plain numpy (``np.asarray`` of a JAX array).
   port keeps the JAX package's arrays as they are, so these copy field for
   field (the live counts become Python ints); they take the JAX objects
   and read each field with ``np.asarray``.
+* :func:`tiled_blocks_from_jax`, :func:`tiled_gemm_plan_from_jax`,
+  :func:`window_gemm_plan_from_jax` and :func:`esc_plan_from_jax` — the
+  SpGEMM blocks and plans, field for field (the tiled and window plans are
+  host numpy in both packages).
 
 Host arrays go to ``device``, the card by default
 (:func:`spsparse_torch.default_device`); the CPU tests pass
@@ -41,6 +45,9 @@ from .core.dia import SparseDIA
 from .core.tiled import SparseTiledCOO
 from .ops.dia_stream import PreparedDIA
 from .ops.general import PreparedGather, PreparedGatherEll, PreparedGeneral
+from .ops.spgemm_planned import EscPlan
+from .ops.spgemm_tiled import TiledBlocks, TiledGemmPlan
+from .ops.spgemm_window import WindowGemmPlan
 from .ops.tiled_spmm import PreparedTiledDense, PreparedTiledRows
 from .ops.tiled_window import PreparedTiledWindow
 
@@ -48,7 +55,9 @@ __all__ = ["coo_from_numpy", "coo_to_numpy", "dia_from_numpy",
            "dia_to_numpy", "prepared_dia_from_jax", "tensor_from_numpy",
            "tensor_to_numpy", "tiled_from_jax", "bsr_from_jax",
            "prepared_tiled_rows_from_jax", "prepared_tiled_dense_from_jax",
-           "prepared_tiled_window_from_jax", "prepared_general_from_jax"]
+           "prepared_tiled_window_from_jax", "prepared_general_from_jax",
+           "tiled_blocks_from_jax", "tiled_gemm_plan_from_jax",
+           "window_gemm_plan_from_jax", "esc_plan_from_jax"]
 
 Tensor = torch.Tensor
 
@@ -190,3 +199,36 @@ def prepared_general_from_jax(pg, *, device=None) -> PreparedGeneral:
     order = (None if pg.order is None else tensor_from_numpy(
         np.asarray(pg.order).astype(np.int64), device))
     return PreparedGeneral(order=order, prep=prep)
+
+
+def tiled_blocks_from_jax(tb, *, device=None) -> TiledBlocks:
+    return TiledBlocks(**_fields(tb, ("tile_row", "tile_col", "blocks"),
+                                 device), shape=_shape(tb))
+
+
+def _numpy_fields(obj, names) -> dict:
+    return {k: np.array(getattr(obj, k)) for k in names}
+
+
+def tiled_gemm_plan_from_jax(plan) -> TiledGemmPlan:
+    return TiledGemmPlan(
+        **_numpy_fields(plan, ("pa", "pb", "oid", "out_tile_row",
+                               "out_tile_col")),
+        transpose_b=bool(plan.transpose_b),
+        out_shape=tuple(int(s) for s in plan.out_shape))
+
+
+def window_gemm_plan_from_jax(plan) -> WindowGemmPlan:
+    return WindowGemmPlan(
+        **_numpy_fields(plan, ("cnt", "pt", "pu", "row_lo")),
+        **{k: int(getattr(plan, k)) for k in ("W", "G", "wrows", "nbr",
+                                              "nbr_pad", "rt_a", "rt_b")},
+        out_shape=tuple(int(s) for s in plan.out_shape),
+        shared=bool(plan.shared),
+        pmax_band=tuple(int(p) for p in plan.pmax_band))
+
+
+def esc_plan_from_jax(plan, *, device=None) -> EscPlan:
+    return EscPlan(**_fields(plan, ("ea", "eb", "seg", "out_indices"),
+                             device), n_out=int(plan.n_out),
+                   out_shape=tuple(int(s) for s in plan.out_shape))

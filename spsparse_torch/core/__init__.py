@@ -1,5 +1,5 @@
 """Core layer: COO arrays, consolidation, structure views, DIA, BSR and
-tiled storage."""
+tiled storage, and the identity constructor."""
 
 from .errors import (
     DuplicatePolicy,
@@ -32,6 +32,7 @@ from .structure import (
 from .dia import SparseDIA, to_dia, dia_to_coo
 from .bsr import SparseBSR, to_bsr
 from .tiled import SparseTiledCOO, to_tiled, pack_columns
+from .construct import coo_eye
 
 __all__ = [
     "DuplicatePolicy", "SpSparseError", "set_error_handler",
@@ -44,4 +45,5 @@ __all__ = [
     "to_csr", "to_csc", "to_ell",
     "SparseDIA", "to_dia", "dia_to_coo",
     "SparseBSR", "to_bsr", "SparseTiledCOO", "to_tiled", "pack_columns",
+    "coo_eye",
 ]

@@ -359,11 +359,13 @@ class SparseCOO:
         return self.transposed((1, 0))
 
     def __matmul__(self, other):
-        """``A @ x``: sparse-dense SpMV/SpMM through the CSR view."""
+        """``A @ B``: the sparse-sparse product (the ESC multiply,
+        :func:`spsparse_torch.ops.spgemm`) for another :class:`SparseCOO`;
+        sparse-dense SpMV/SpMM through the CSR view for a dense operand."""
         if isinstance(other, SparseCOO):
-            raise NotImplementedError(
-                "sparse @ sparse needs ops/spgemm.py, which is not ported "
-                "yet (ROADMAP queue 1, slice 1b)")
+            from ..ops.spgemm import spgemm
+
+            return spgemm(self, other)
         from ..ops.spmm import spmm, spmv
         from .structure import to_csr
 

@@ -1,5 +1,6 @@
 // Shared body of the dense-block tiled SpMM kernels K5 (tiled_window.cu)
-// and K6 (tiled.cu).
+// and K6 (tiled.cu); its k-chunk step (fma_chunk) also serves the SpGEMM
+// kernels K8 and K9 (spgemm.cu).
 //
 // The operand is a sparse pattern of dense 128 x 128 blocks grouped by
 // block row: blocks (nbr, rt, 128, 128) row-major, slot t of block row b
@@ -76,6 +77,41 @@ __device__ __forceinline__ int out_col(int tx, int j) {
   }
 }
 
+// One staged k-chunk of the register-blocked tile product, in k order:
+//   acc[i][j] += sum_k As[k][ty*kTM + i] * Xs[k][out_col<BN>(tx, j)].
+// Xs rows are XS floats apart (BN, or kAStride for a transposed stage).
+// Shared with the SpGEMM kernels K8, K9 (spgemm.cu).
+template <int BN, int XS>
+__device__ __forceinline__ void fma_chunk(const float (*As)[kAStride],
+                                          const float (*Xs)[XS], int tx,
+                                          int ty, float (&acc)[kTM][BN / 16]) {
+  constexpr int TN = BN / 16;
+#pragma unroll
+  for (int k = 0; k < kBK; ++k) {
+    float a[kTM], x[TN];
+    const float4 a0 = *reinterpret_cast<const float4*>(&As[k][ty * kTM]);
+    const float4 a1 = *reinterpret_cast<const float4*>(&As[k][ty * kTM + 4]);
+    a[0] = a0.x; a[1] = a0.y; a[2] = a0.z; a[3] = a0.w;
+    a[4] = a1.x; a[5] = a1.y; a[6] = a1.z; a[7] = a1.w;
+    if constexpr (TN >= 4) {
+#pragma unroll
+      for (int g = 0; g < TN / 4; ++g) {
+        const float4 xv = *reinterpret_cast<const float4*>(
+            &Xs[k][out_col<BN>(tx, 4 * g)]);
+        x[4 * g] = xv.x; x[4 * g + 1] = xv.y;
+        x[4 * g + 2] = xv.z; x[4 * g + 3] = xv.w;
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < TN; ++j) x[j] = Xs[k][out_col<BN>(tx, j)];
+    }
+#pragma unroll
+    for (int i = 0; i < kTM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], x[j], acc[i][j]);
+  }
+}
+
 template <typename T, int BN, typename Cols>
 __global__ void __launch_bounds__(kThreads)
     dense_tiles_kernel(const T* __restrict__ blocks, Cols cols, int rt,
@@ -118,31 +154,7 @@ __global__ void __launch_bounds__(kThreads)
         Xs[k][n] = (xr < K && xc < N) ? to_f32(X[xr * N + xc]) : 0.f;
       }
       __syncthreads();
-#pragma unroll
-      for (int k = 0; k < kBK; ++k) {
-        float a[kTM], x[TN];
-        const float4 a0 = *reinterpret_cast<const float4*>(&As[k][ty * kTM]);
-        const float4 a1 =
-            *reinterpret_cast<const float4*>(&As[k][ty * kTM + 4]);
-        a[0] = a0.x; a[1] = a0.y; a[2] = a0.z; a[3] = a0.w;
-        a[4] = a1.x; a[5] = a1.y; a[6] = a1.z; a[7] = a1.w;
-        if constexpr (TN >= 4) {
-#pragma unroll
-          for (int g = 0; g < TN / 4; ++g) {
-            const float4 xv = *reinterpret_cast<const float4*>(
-                &Xs[k][out_col<BN>(tx, 4 * g)]);
-            x[4 * g] = xv.x; x[4 * g + 1] = xv.y;
-            x[4 * g + 2] = xv.z; x[4 * g + 3] = xv.w;
-          }
-        } else {
-#pragma unroll
-          for (int j = 0; j < TN; ++j) x[j] = Xs[k][out_col<BN>(tx, j)];
-        }
-#pragma unroll
-        for (int i = 0; i < kTM; ++i)
-#pragma unroll
-          for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], x[j], acc[i][j]);
-      }
+      fma_chunk<BN, BN>(As, Xs, tx, ty, acc);
       __syncthreads();
     }
   }

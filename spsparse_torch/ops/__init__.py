@@ -1,9 +1,18 @@
-"""Sparse operator layer: multiply chains, SpMV/SpMM, DIA kernels
-(SpMV, chain, multi-RHS SpMM, CG), tiled general SpMM kernels (super-row
-window, dense-block, one-hot) and the prepared general path."""
+"""Sparse operator layer: multiply chains, SpGEMM (ESC, planned ESC and the
+tiled band and pair kernels), SpMV/SpMM, DIA kernels (SpMV, chain,
+multi-RHS SpMM, CG), tiled general SpMM kernels (super-row window,
+dense-block, one-hot) and the prepared general path."""
 
 from .multiply_sparse import (multiply, multiply_mv, multiply_chain,
                               expansion_size)
+from .spgemm import (spgemm, spgemm_aat, plan_spgemm_caps, best_spgemm,
+                     coo_matrix_power)
+from .spgemm_tiled import (spgemm_tiled, plan_tiled_spgemm, densify_tiled,
+                           spgemm_tiled_pairs, spgemm_tiled_stream,
+                           spgemm_tiled_reference)
+from .spgemm_planned import plan_esc, spgemm_planned, spgemm_planned_vals
+from .spgemm_window import (plan_window_spgemm, spgemm_window,
+                            spgemm_window_reference)
 from .spmm import spmv, spmm, spmm_bsr
 from .spmv_kernels import spmv_dia, spmv_ell, best_spmv, best_spmm
 from .dia_stream import (PreparedDIA, prepare_dia, spmv_dia_stream,
@@ -26,6 +35,12 @@ from .general import (GATHER_FILL_THRESHOLD, PreparedGather,
 
 __all__ = [
     "multiply", "multiply_mv", "multiply_chain", "expansion_size",
+    "spgemm", "spgemm_aat", "plan_spgemm_caps", "best_spgemm",
+    "coo_matrix_power",
+    "spgemm_tiled", "plan_tiled_spgemm", "densify_tiled",
+    "spgemm_tiled_pairs", "spgemm_tiled_stream", "spgemm_tiled_reference",
+    "plan_esc", "spgemm_planned", "spgemm_planned_vals",
+    "plan_window_spgemm", "spgemm_window", "spgemm_window_reference",
     "spmv", "spmm", "spmm_bsr",
     "spmv_dia", "spmv_ell", "best_spmv", "best_spmm",
     "PreparedDIA", "prepare_dia", "spmv_dia_stream",

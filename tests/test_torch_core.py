@@ -391,8 +391,11 @@ def test_matmul_with_dense_operand(rhs_shape):
     X = rng.uniform(-1, 1, rhs_shape)
     np.testing.assert_allclose(tensor_to_numpy(t @ torch.from_numpy(X)),
                                tensor_to_numpy(t.to_dense()) @ X, rtol=1e-12)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t @ t
+    d = tensor_to_numpy(t.to_dense())
+    np.testing.assert_allclose(tensor_to_numpy((t @ t.T).to_dense()),
+                               d @ d.T, rtol=1e-12, atol=1e-15)
+    with pytest.raises(tsp.SpSparseError):
+        t @ t               # inner dimensions 7 and 9
 
 
 # ----------------------------------------------------------------------

@@ -6,8 +6,10 @@
 Builds the banded benchmark matrix ``B`` (n = 2**20, offsets -5..5, f32,
 values from ``default_rng(0)``) and ``S = (B + B^T)/2``, and bench config
 3's regridding matrix (m = 2**18, 50 entries a row, X of 128 columns) with
-its tiled layouts, and the one_hot route's layout of ``chip_smoke.py``'s
-phase 14, as ``chip_smoke.py`` does; runs each wrapper (and the
+its tiled layouts, the one_hot route's layout of ``chip_smoke.py``'s
+phase 14, and bench config 4's matrix (2**17 rows) with its band plan and
+pair plans (A A^T, and C C for C = A A^T), as ``chip_smoke.py`` does; runs
+each wrapper (and the
 library calls that ``chip_smoke.py`` uses as yardsticks) 10 times under
 ``torch.profiler``, and prints one JSON line per workload: the CUDA kernels
 it ran, their count and device time, and the device time per call. Needs
@@ -27,10 +29,14 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import chip_smoke as cs  # noqa: E402
 import spsparse_torch as sp  # noqa: E402
-from spsparse_torch.ops import (cg_solve_dia, prepare_dia,  # noqa: E402
+from spsparse_torch.ops import (best_spgemm, cg_solve_dia,  # noqa: E402
+                                densify_tiled, plan_tiled_spgemm,
+                                plan_window_spgemm, prepare_dia,
                                 prepare_general, prepare_tiled_dense,
                                 prepare_tiled_rows,
-                                prepare_tiled_window, spmm_dia_mrhs,
+                                prepare_tiled_window, spgemm_tiled_pairs,
+                                spgemm_tiled_stream, spgemm_window,
+                                spmm_dia_mrhs,
                                 spmm_tiled_dense, spmm_tiled_onehot,
                                 spmm_tiled_window, spmv_dia_chain,
                                 spmv_dia_stream)
@@ -85,6 +91,25 @@ def main() -> int:
     Xo = torch.from_numpy(np.random.default_rng(6).uniform(
         -1, 1, (m, cs.SPMM_N)).astype(np.float32)).to(dev)
     Ao_csr = cs.library_csr_of(torch, ro, co, vo, (m, m), dev)
+    n4 = cs.CFG4_N
+    r4, c4, v4 = cs.cfg4_entries(n4)
+    b4 = sp.CooBuilder((n4, 2 * n4), dtype=np.float32)
+    b4.add_many(np.stack([r4, c4], 1), v4)
+    A4 = sp.consolidate(b4.build(device=dev))
+    tl4 = sp.to_tiled(A4)
+    band = {}
+    for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        prep = prepare_tiled_dense(tl4, dtype=dt)
+        band[name] = (plan_window_spgemm(prep.tcols, prep.tcols,
+                                         nbc=prep.nbc, out_shape=(n4, n4),
+                                         dtype=dt), prep.blocks)
+    ta = {name: densify_tiled(tl4, dtype=dt) for name, dt in
+          (("f32", torch.float32), ("bf16", torch.bfloat16))}
+    plan_t = plan_tiled_spgemm(ta["f32"], ta["f32"], transpose_b=True)
+    tc = densify_tiled(sp.to_tiled(best_spgemm(A4, A4, transpose_b=True)))
+    plan_n = plan_tiled_spgemm(tc, tc)
+    A64 = cs._csr_of(A4)
+    L4, R4 = cs.torch_csr(torch, A64, dev), cs.torch_csr(torch, A64.T, dev)
     work = {
         "K1 f32": lambda: spmv_dia_stream(pf, x),
         "K1 bf16": lambda: spmv_dia_stream(pb, x),
@@ -104,6 +129,21 @@ def main() -> int:
         "library A3_csr @ X, config 3": lambda: A3_csr @ X3,
         "K7 f32, one_hot route": lambda: spmm_tiled_onehot(pg.prep, Xo),
         "library Ao_csr @ X, one_hot route": lambda: Ao_csr @ Xo,
+        "K8 f32, config 4 A A^T band": lambda: spgemm_window(*band["f32"]),
+        "K8 bf16, config 4 A A^T band": lambda: spgemm_window(*band["bf16"]),
+        "K9 f32, config 4 A A^T pairs": lambda: spgemm_tiled_pairs(
+            ta["f32"], ta["f32"], plan_t),
+        "K9 bf16, config 4 A A^T pairs": lambda: spgemm_tiled_pairs(
+            ta["bf16"], ta["bf16"], plan_t),
+        "K13 f32, config 4 A A^T pairs": lambda: spgemm_tiled_stream(
+            ta["f32"], ta["f32"], plan_t),
+        "K13 bf16, config 4 A A^T pairs": lambda: spgemm_tiled_stream(
+            ta["bf16"], ta["bf16"], plan_t),
+        "K9 f32, config 4 C C pairs": lambda: spgemm_tiled_pairs(tc, tc,
+                                                                 plan_n),
+        "K13 f32, config 4 C C pairs": lambda: spgemm_tiled_stream(tc, tc,
+                                                                   plan_n),
+        "library A4_csr @ A4T_csr, config 4": lambda: L4 @ R4,
     }
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]

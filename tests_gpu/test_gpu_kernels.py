@@ -10,9 +10,9 @@ kernels fuse multiply-adds, the plain versions round each product); K2
 rtol 1e-4 / atol 1e-6 over up to 7 iterations; K4 1e-4 of max|x| after 40
 CG iterations against its plain version and the composed solve over K1
 (the rounding differences compound through the recurrences). K5-K7
-(tiled general SpMM): float32 rtol 1e-5 with atol 1e-5 of max|ref|;
-bfloat16 blocks atol 1e-4 of max|ref| (exact products, float32 sums in
-another order); gradients rtol/atol 1e-4.
+(tiled general SpMM) and K8, K9, K13 (tiled SpGEMM): float32 rtol 1e-5
+with atol 1e-5 of max|ref|; bfloat16 blocks atol 1e-4 of max|ref| (exact
+products, float32 sums in another order); gradients rtol/atol 1e-4.
 """
 
 import numpy as np
@@ -359,3 +359,159 @@ def test_tiled_window_grads_match_plain():
         grads.append((blocks.grad.cpu(), Xt.grad.cpu()))
     for g_dev, g_cpu in zip(*grads):
         torch.testing.assert_close(g_dev, g_cpu, rtol=1e-4, atol=1e-4)
+
+
+# ----------------------------------------------------------------------
+# K8, K9, K13: tiled SpGEMM
+# ----------------------------------------------------------------------
+def regrid_coo(dev, n, per, seed, every=1):
+    """Bench config 4's kind: ``per`` entries in each ``every``-th row at
+    columns ``2r + U{0,1,2}`` of 2n."""
+    import spsparse_torch as sp
+
+    rng = np.random.default_rng(seed)
+    r = np.repeat(np.arange(0, n, every), per)
+    c = np.minimum(r * 2 + rng.integers(0, 3, r.size), 2 * n - 1)
+    b = sp.CooBuilder((n, 2 * n), dtype=np.float32)
+    b.add_many(np.stack([r, c], 1), rng.uniform(0, 1, r.size))
+    return b.build(device=dev)
+
+
+def coo_of(dev, shape, rows, cols, seed):
+    import spsparse_torch as sp
+
+    b = sp.CooBuilder(shape, dtype=np.float32)
+    b.add_many(np.stack([rows, cols], 1),
+               np.random.default_rng(seed).uniform(-1, 1, len(rows)))
+    return b.build(device=dev)
+
+
+def dirty_cache(dev, nbytes):
+    """Leave NaN in the caching allocator's free blocks, so that an output
+    slot the kernel fails to write shows."""
+    junk = torch.full((nbytes // 4 + 1,), float("nan"), device=dev)
+    del junk
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["shared", "two_operand", "uneven"])
+def test_k8_matches_plain_dead_slots_zero(dtype, case):
+    import spsparse_torch as sp
+    from spsparse_torch.ops import (plan_window_spgemm, prepare_tiled_dense,
+                                    spgemm_window, spgemm_window_reference)
+
+    dev = _cuda()
+    dt = getattr(torch, dtype)
+    if case == "uneven":       # half the rows empty, 8 block rows, group 3
+        A, B, group = regrid_coo(dev, 900, 2, 11, every=2), None, 3
+    else:
+        A, group = regrid_coo(dev, 1000, 4, 12), 4
+        B = None if case == "shared" else regrid_coo(dev, 1000, 3, 13)
+    pa = prepare_tiled_dense(sp.to_tiled(A), dtype=dt)
+    pb = pa if B is None else prepare_tiled_dense(sp.to_tiled(B), dtype=dt)
+    plan = plan_window_spgemm(pa.tcols, pb.tcols, nbc=pa.nbc,
+                              out_shape=(A.shape[0],
+                                         (A if B is None else B).shape[0]),
+                              group=group, dtype=dt)
+    assert plan.shared == (B is None)
+    if case == "uneven":
+        assert plan.nbr_pad > plan.nbr
+    dirty_cache(dev, plan.nbr_pad * plan.nband * 128 * 128 * 4)
+    before = spgemm_window.launches
+    band = spgemm_window(plan, pa.blocks, None if plan.shared else pb.blocks)
+    torch.cuda.synchronize()
+    assert spgemm_window.launches == before + 1
+    ref = spgemm_window_reference(plan, pa.blocks,
+                                  None if plan.shared else pb.blocks)
+    torch.testing.assert_close(band, ref, **_scaled(_tol(dtype), ref))
+    dead = torch.from_numpy(plan.cnt == 0).to(dev)
+    assert bool(dead.any())
+    assert not bool(band.reshape(-1, 128 * 128)[dead].any())
+    assert torch.equal(band, spgemm_window(
+        plan, pa.blocks, None if plan.shared else pb.blocks))
+
+
+def pair_operands(dev, kind, transpose_b, dt):
+    """Flat operand blocks: ``regrid`` (config 4's kind), ``one_pair`` (one
+    tile each) or ``many_pairs`` (one output tile summing 40 pairs)."""
+    import spsparse_torch as sp
+    from spsparse_torch.ops import densify_tiled
+
+    if kind == "regrid":
+        A = regrid_coo(dev, 1000, 4, 21)
+        B = A if transpose_b else coo_of(
+            dev, (2000, 700), np.arange(2000),
+            np.random.default_rng(22).integers(0, 700, 2000), 23)
+    elif kind == "one_pair":
+        A = coo_of(dev, (200, 300), np.arange(100), np.arange(100) % 128, 24)
+        shape = (150, 300) if transpose_b else (300, 150)
+        r = np.arange(100) % 128
+        B = coo_of(dev, shape, *((np.arange(100), r) if transpose_b
+                                 else (r, np.arange(100))), 25)
+    else:
+        k = np.arange(40 * 128)
+        A = coo_of(dev, (128, 40 * 128), k % 128, k, 26)
+        shape = (128, 40 * 128) if transpose_b else (40 * 128, 128)
+        B = coo_of(dev, shape, *((k % 128, k) if transpose_b
+                                 else (k, k % 128)), 27)
+    return (densify_tiled(sp.to_tiled(A), dtype=dt),
+            densify_tiled(sp.to_tiled(B), dtype=dt))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("transpose_b", [False, True])
+@pytest.mark.parametrize("kind", ["regrid", "one_pair", "many_pairs"])
+def test_k9_k13_match_plain(dtype, transpose_b, kind):
+    from spsparse_torch.ops import (plan_tiled_spgemm, spgemm_tiled_pairs,
+                                    spgemm_tiled_reference,
+                                    spgemm_tiled_stream)
+
+    dev = _cuda()
+    ta, tb = pair_operands(dev, kind, transpose_b, getattr(torch, dtype))
+    plan = plan_tiled_spgemm(ta, tb, transpose_b=transpose_b)
+    if kind == "one_pair":
+        assert plan.n_pairs == 1
+    if kind == "many_pairs":
+        assert plan.n_out_tiles == 1 and plan.n_pairs == 40
+    ref = spgemm_tiled_reference(ta, tb, plan).blocks
+    outs = []
+    for fn in (spgemm_tiled_pairs, spgemm_tiled_stream):
+        dirty_cache(dev, plan.n_out_tiles * 128 * 128 * 4)
+        before = fn.launches
+        out = fn(ta, tb, plan)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        torch.testing.assert_close(out.blocks, ref,
+                                   **_scaled(_tol(dtype), ref))
+        outs.append(out.blocks)
+    torch.testing.assert_close(outs[1], outs[0], **_scaled(_tol(dtype), ref))
+
+
+def test_spgemm_cuda_tensors_never_reach_plain_versions(monkeypatch):
+    import importlib
+
+    import scipy.sparse as ssp
+
+    from spsparse_torch.ops import best_spgemm, spgemm_tiled
+
+    # importlib: the package attribute ops.spgemm_tiled is the function.
+    st_mod = importlib.import_module("spsparse_torch.ops.spgemm_tiled")
+    sw_mod = importlib.import_module("spsparse_torch.ops.spgemm_window")
+
+    dev = _cuda()
+    A = regrid_coo(dev, 1000, 4, 31)
+    idx = A.indices[: A.nnz].cpu().numpy()
+    As = ssp.csr_matrix((A.vals[: A.nnz].cpu().numpy().astype(np.float64),
+                         (idx[:, 0], idx[:, 1])), shape=A.shape)
+    want = (As @ As.T).toarray()
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached a plain version")
+
+    monkeypatch.setattr(st_mod, "spgemm_tiled_reference", refuse)
+    monkeypatch.setattr(sw_mod, "spgemm_window_reference", refuse)
+    for C in (best_spgemm(A, A, transpose_b=True),
+              spgemm_tiled(A, A, transpose_b=True, use_window=False)):
+        got = C.to_dense().cpu().numpy()
+        np.testing.assert_allclose(got, want, rtol=1e-5,
+                                   atol=1e-5 * np.abs(want).max())
