@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the spsparse_torch main path, solve path, SpMM path and SpGEMM path
-once on one CUDA card and check them.
+"""Drive the spsparse_torch main path, solve path, SpMM path, SpGEMM path and
+unstructured SpMV path once on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -80,14 +80,37 @@ operand:
     ``spgemm_planned`` against scipy.
 20. Hand-off: the band's ``TiledBlocks.to_prepared_dense()`` through K6
     with X of 128 columns, against scipy.
-21. Time every kernel against its plain version (CUDA events, in turns:
+The unstructured path (``unstructured_path``), bench config 2c's widths
+(``bench.py:config2c_unstructured``: 2**20 x 2**20, 10 uniform-random
+columns a row, values uniform(-1, 1), x uniform(-1, 1), all from
+``default_rng(0)``), against float64 scipy products:
+
+21. Build the matrix through ``CooBuilder`` and ``prepare_shuffle_spmv``;
+    log B, n_vrows, gather_fill and the prepare's host wall.
+22. K11: ``best_spmv(prep, x)``; K11's ELL slot grid against its plain
+    version (the JAX sort pipeline) bit for bit on an allocation left full
+    of NaN, ``y`` against the plain ``spmv_shuffle`` and scipy; the same on
+    a heavy-row matrix (2**16 rows, one row of 4096 and 100 of 90 entries,
+    ``ell_k`` 16: split rows).
+23. K10: ``segmented_row_sums`` on the CSR products against its plain
+    version, ``spmv_csr_segsum`` against scipy, and K10 on a skewed row
+    pointer (empty rows, one row of 4096).
+24. K12: ``sort_blocks`` on (1024, 64, 128) int32 keys with a float32
+    payload, two keys, R = 1, (8, 256, 128) with three arrays (past the
+    shared-memory chunk); ``sort_blocks_stable`` packed and not. Keys
+    exact, payloads exact when stable and otherwise as a multiset within
+    each run of equal keys.
+25. Time every kernel against its plain version (CUDA events, in turns:
     plain, kernel, kernel, plain), and one PyTorch library call computing
     the same function where there is one (``torch.sparse_csr_tensor``
     products; none for K4, whose solve is no single library call). K7 is
     timed on config 3's tiles and on the one_hot route's layout of phase
     14, the traffic ``prepare_general`` sends it. K8, K9 and K13 at config
     4, with cuSPARSE's CSR x CSR SpGEMM as the yardstick; ``spgemm_tiled``
-    end to end, the ESC ``spgemm_aat`` and the planned apply.
+    end to end, the ESC ``spgemm_aat`` and the planned apply. K10 and K11
+    at config 2c against cuSPARSE's CSR SpMV, with ``spmv_shuffle`` and
+    ``spmv_csr_segsum`` end to end in nnz/s; K12 against ``torch.sort``
+    carrying the payload through ``gather``.
 
 The launch counters of the kernel wrappers are reset before each path and
 read after it; a kernel of the path launched no time there fails the run.
@@ -127,6 +150,9 @@ SAMPLED_ROWS = 4096
 GRAD_M = 1 << 13
 CFG4_N = 1 << 17     # rows of bench config 4's regridding matrix
 SPGEMM_X = 128       # columns of X in the SpGEMM hand-off to K6
+CFG2C_K = 10         # entries a row of bench config 2c (n = N)
+HEAVY_N = 1 << 16    # rows of the heavy-row shuffle matrix
+SORT_NBLK = 1024     # (1024, 64, 128) blocks: the TPU sort probe's size
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12     # H100 SXM bfloat16 on the tensor cores
@@ -162,6 +188,15 @@ KERNELS = {
     "spgemm_tiled_stream": dict(
         route="cuda", source="spsparse_torch/csrc/spgemm.cu",
         replaces="spsparse_tpu/ops/spgemm_tiled.py:350"),
+    "segmented_row_sums": dict(
+        route="cuda", source="spsparse_torch/csrc/segsum.cu",
+        replaces="spsparse_tpu/ops/pallas_segsum.py:48"),
+    "shuffle_gather": dict(
+        route="cuda", source="spsparse_torch/csrc/spmv_shuffle.cu",
+        replaces="spsparse_tpu/ops/spmv_shuffle.py:199"),
+    "sort_blocks": dict(
+        route="cuda", source="spsparse_torch/csrc/block_sort.cu",
+        replaces="spsparse_tpu/ops/pallas_sort.py:85"),
 }
 
 
@@ -1090,6 +1125,232 @@ def spgemm_path(torch, sp, dev, n=CFG4_N) -> dict:
     return {"cfg": cfg, "k8": k8, "pairs": pairs, "esc": esc}
 
 
+def cfg2c_entries(n: int, k: int = CFG2C_K, seed: int = 0):
+    """Bench config 2c (``bench.py:config2c_unstructured``): row r holds
+    ``k`` entries at uniform-random columns of n, values uniform(-1, 1)
+    float32, then x uniform(-1, 1), all from one ``default_rng(seed)``.
+    Returns ``(rows, cols, vals, x)``."""
+    rng = np.random.default_rng(seed)
+    rows = np.repeat(np.arange(n), k)
+    cols = rng.integers(0, n, rows.size)
+    vals = rng.uniform(-1, 1, rows.size).astype(np.float32)
+    return rows, cols, vals, rng.uniform(-1, 1, n).astype(np.float32)
+
+
+def heavy_entries(n: int, seed: int = 10):
+    """A heavy-row matrix of n x n: 10 uniform-random columns a row, plus
+    4096 distinct columns in row 0 and 90 in each of 100 other rows, so
+    that ``ell_k = 16`` splits rows (``extra_rows`` non-empty)."""
+    rng = np.random.default_rng(seed)
+    r = [np.repeat(np.arange(n), CFG2C_K), np.zeros(4096, np.int64)]
+    c = [rng.integers(0, n, n * CFG2C_K), rng.permutation(n)[:4096]]
+    for row in rng.choice(np.arange(1, n), 100, replace=False):
+        r.append(np.full(90, row))
+        c.append(rng.permutation(n)[:90])
+    r, c = np.concatenate(r), np.concatenate(c)
+    return (r, c, rng.uniform(-1, 1, r.size).astype(np.float32),
+            rng.uniform(-1, 1, n).astype(np.float32))
+
+
+def dirty_cache(torch, dev, nbytes: int) -> None:
+    """Leave NaN in the caching allocator's free blocks, so that an output
+    slot a kernel fails to write shows (a no-op off the card)."""
+    if torch.device(dev).type == "cuda":
+        junk = torch.full((nbytes // 4 + 1,), float("nan"), device=dev)
+        del junk
+
+
+def check_shuffle(torch, dev, prep, x, host, what: str) -> dict:
+    """K11's slot grid against its plain version bit for bit (on an
+    allocation left full of NaN), ``best_spmv`` against the plain
+    ``spmv_shuffle`` (rtol 1e-5, atol 1e-5 of max|ref|: the same slot
+    sums) and against the float64 scipy product (1e-5 of max|y|)."""
+    from spsparse_torch.ops import (best_spmv, shuffle_gather,
+                                    shuffle_gather_reference,
+                                    spmv_shuffle_reference)
+
+    y = best_spmv(prep, x)
+    dirty_cache(torch, dev, prep.n_slots * 4)
+    slots = shuffle_gather(prep, x)
+    ref_slots = shuffle_gather_reference(prep, x)
+    sync(torch, dev)
+    require(not bool(torch.isnan(slots).any()),
+            f"K11 {what}: a slot was left unwritten (NaN)")
+    require(torch.equal(slots, ref_slots),
+            f"K11 {what}: the slot grid differs from the plain sort pipeline")
+    ok, err_plain = close(y.cpu().numpy(),
+                          spmv_shuffle_reference(prep, x).cpu().numpy(),
+                          1e-5, 1e-5)
+    require(ok, f"spmv_shuffle {what} off its plain version ({err_plain})")
+    y_ref = host @ x.cpu().numpy().astype(np.float64)
+    ok, err = close(y.cpu().numpy(), y_ref, 0.0, 1e-5)
+    require(ok and tuple(y.shape) == (prep.shape[0],),
+            f"spmv_shuffle {what} off the float64 scipy product ({err})")
+    return {"y": y, "err_plain": err_plain, "err": err}
+
+
+def phase_2c(torch, sp, dev, n):
+    """Phase 21: config 2c through CooBuilder and prepare_shuffle_spmv."""
+    from spsparse_torch.ops import prepare_shuffle_spmv
+
+    rows, cols, vals, x = cfg2c_entries(n)
+    A = build_coo(sp, dev, (n, n), rows, cols, vals)
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    prep = prepare_shuffle_spmv(A)
+    sync(torch, dev)
+    prep_s = time.perf_counter() - t0
+    return {"A": A, "prep": prep, "x": torch.from_numpy(x).to(dev),
+            "host": csr_host(rows, cols, vals, (n, n)), "n": n,
+            "nnz": rows.size, "prepare_s": prep_s,
+            "fill": rows.size / (prep.n_batches * 1024)}
+
+
+def phase_shuffle(torch, sp, dev, c2, heavy_n):
+    """Phase 22: K11 through best_spmv at config 2c and on the heavy-row
+    matrix (ell_k 16, split rows)."""
+    from spsparse_torch.ops import prepare_shuffle_spmv
+
+    out = {"2c": check_shuffle(torch, dev, c2["prep"], c2["x"], c2["host"],
+                               "config 2c")}
+    r, c, v, xh = heavy_entries(heavy_n)
+    prep = prepare_shuffle_spmv(build_coo(sp, dev, (heavy_n, heavy_n), r, c,
+                                          v), ell_k=16)
+    require(prep.extra_rows.shape[0] > 0, "the heavy-row matrix split no row")
+    out["heavy"] = check_shuffle(torch, dev, prep, torch.from_numpy(xh).to(
+        dev), csr_host(r, c, v, (heavy_n, heavy_n)), "heavy rows")
+    out["heavy_extra"] = int(prep.extra_rows.shape[0])
+    return out
+
+
+def phase_segsum(torch, sp, dev, c2):
+    """Phase 23: K10 on config 2c's CSR products against its plain version
+    (rtol 1e-5, atol 1e-5 of max|ref|: another sum order),
+    ``spmv_csr_segsum`` against scipy float64 (1e-5 of max|y|), and K10
+    on a skewed row pointer (empty rows, one row of 4096)."""
+    from spsparse_torch.ops import (csr_products, segmented_row_sums,
+                                    segmented_row_sums_reference,
+                                    spmv_csr_segsum)
+
+    n, x = c2["n"], c2["x"]
+    csr = sp.to_csr(c2["A"])
+    prod = csr_products(csr, x)
+    y10 = segmented_row_sums(prod, csr.row_ptr, nrows=n, rows_per_block=256,
+                             entries_per_block=1024)
+    ref10 = segmented_row_sums_reference(prod, csr.row_ptr, n)
+    ys = spmv_csr_segsum(csr, x)
+    sync(torch, dev)
+    err = {"k10": check_pair(y10, ref10, "K10 vs plain", False)}
+    ok, err["csr_spmv"] = close(ys.cpu().numpy(), c2["host"] @ x.cpu().numpy()
+                                .astype(np.float64), 0.0, 1e-5)
+    require(ok, f"spmv_csr_segsum off scipy (max abs err {err['csr_spmv']})")
+
+    rng = np.random.default_rng(11)
+    ns = min(1 << 16, n)
+    counts = rng.integers(0, 4, ns) * (np.arange(ns) % 5 != 0)
+    counts[ns // 3] = 4096
+    rp = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    ph = rng.uniform(-1, 1, int(rp[-1])).astype(np.float32)
+    ys = segmented_row_sums(torch.from_numpy(ph).to(dev),
+                            torch.from_numpy(rp).to(dev), nrows=ns,
+                            rows_per_block=8, entries_per_block=128)
+    sync(torch, dev)
+    want = np.add.reduceat(np.append(ph.astype(np.float64), 0.0), rp[:-1])
+    want[counts == 0] = 0.0
+    ok, err["skewed"] = close(ys.cpu().numpy(), want, 1e-5, 1e-5)
+    require(ok, f"K10 on the skewed row pointer ({err['skewed']})")
+    return {"csr": csr, "prod": prod, "err": err}
+
+
+def same_up_to_ties(torch, got, ref, num_keys: int, what: str) -> None:
+    """Keys exactly equal; payloads equal as a multiset within each run of
+    equal keys (a bitonic network is not stable): both sides canonicalised
+    by a stable sort over keys and payload bits."""
+    from spsparse_torch.ops import sort_blocks_reference
+
+    for g, r in zip(got[:num_keys], ref[:num_keys]):
+        require(torch.equal(g, r), f"K12 {what}: keys differ")
+
+    def canon(arrs):
+        bits = tuple(a.view(torch.int32) for a in arrs)
+        return sort_blocks_reference(bits, num_keys=len(bits))
+
+    require(all(torch.equal(a, b) for a, b in zip(canon(got), canon(ref))),
+            f"K12 {what}: payloads differ within runs of equal keys")
+
+
+def phase_sort(torch, dev, nblk):
+    """Phase 24: K12 on (nblk, 64, 128) int32 keys with a float32 payload,
+    two keys, sort_blocks_stable packed and not (exact), R = 1, and
+    (8, 256, 128) with three arrays (past the shared-memory chunk)."""
+    from spsparse_torch.ops import (sort_blocks, sort_blocks_reference,
+                                    sort_blocks_stable)
+
+    rng = np.random.default_rng(12)
+
+    def t(a):
+        return torch.from_numpy(a).to(dev)
+
+    def ints(hi, shape):
+        return t(rng.integers(0, hi, shape).astype(np.int32))
+
+    def floats(shape):
+        return t(rng.uniform(-1, 1, shape).astype(np.float32))
+
+    main = (ints(1 << 30, (nblk, 64, 128)), floats((nblk, 64, 128)))
+    cases = [("(nblk, 64, 128) key + payload", main, 1),
+             ("two keys", (ints(8, (nblk // 4, 32, 128)),
+                           ints(1 << 20, (nblk // 4, 32, 128)),
+                           floats((nblk // 4, 32, 128))), 2),
+             ("R = 1", (ints(1 << 12, (nblk, 1, 128)),
+                        floats((nblk, 1, 128))), 1),
+             ("(8, 256, 128) three arrays", (ints(64, (8, 256, 128)),
+                                             ints(1 << 30, (8, 256, 128)),
+                                             floats((8, 256, 128))), 2)]
+    for what, arrays, nk in cases:
+        dirty_cache(torch, dev, sum(a.numel() for a in arrays) * 4)
+        got = sort_blocks(arrays, num_keys=nk)
+        ref = sort_blocks_reference(arrays, num_keys=nk)
+        sync(torch, dev)
+        same_up_to_ties(torch, got, ref, nk, what)
+    kk, pay = ints(8, (nblk // 4, 8, 128)), floats((nblk // 4, 8, 128))
+    ref = sort_blocks_reference((kk, pay))
+    for bound in (8, None):
+        got = sort_blocks_stable(kk, (pay,), key_bound=bound)
+        sync(torch, dev)
+        require(all(torch.equal(a, b) for a, b in zip(got, ref)),
+                f"K12 sort_blocks_stable (key_bound {bound}) is not the "
+                "stable sort")
+    return {"main": main, "cases": [c[0] for c in cases]}
+
+
+def unstructured_path(torch, sp, dev, n=N, heavy_n=HEAVY_N,
+                      sort_nblk=SORT_NBLK) -> dict:
+    """Phases 21-24 on ``dev``; returns what the timing phase reuses."""
+    t0 = time.perf_counter()
+    c2 = phase_2c(torch, sp, dev, n)
+    p = c2["prep"]
+    log(f"phase 21 config 2c: {c2['nnz']} entries, B {p.n_batches}, n_vrows "
+        f"{p.n_vrows}, fillers {p.filler_dest.shape[0]}, gather_fill "
+        f"{c2['fill']!r}; prepare_shuffle_spmv {c2['prepare_s']!r} s "
+        f"({time.perf_counter() - t0:.3f} s)")
+    t0 = time.perf_counter()
+    sh = phase_shuffle(torch, sp, dev, c2, heavy_n)
+    log(f"phase 22 K11: config 2c max abs err {sh['2c']['err']!r} vs scipy, "
+        f"{sh['2c']['err_plain']!r} vs plain; heavy rows ({sh['heavy_extra']}"
+        f" split) {sh['heavy']['err']!r} vs scipy; slot grids bitwise "
+        f"({time.perf_counter() - t0:.3f} s)")
+    t0 = time.perf_counter()
+    seg = phase_segsum(torch, sp, dev, c2)
+    log(f"phase 23 K10: max abs err {seg['err']} "
+        f"({time.perf_counter() - t0:.3f} s)")
+    t0 = time.perf_counter()
+    srt = phase_sort(torch, dev, sort_nblk)
+    log(f"phase 24 K12: {srt['cases']}, stable packed and not: keys exact, "
+        f"payloads by runs ({time.perf_counter() - t0:.3f} s)")
+    return {"c2": c2, "shuffle": sh, "segsum": seg, "sort": srt}
+
+
 def time_ms(torch, fn, *, reps: int = 15, inner: int = 10,
             warmup: int = 3) -> list[float]:
     """Per-call milliseconds of ``reps`` CUDA-event-timed runs of ``inner``
@@ -1370,6 +1631,93 @@ def spgemm_timings(torch, spg, launches: dict) -> tuple[list[dict], dict]:
     return rows, {"end_to_end_ms": ends, "library_ms": lib}
 
 
+def unstructured_timings(torch, un, launches: dict) -> tuple[list, dict]:
+    """Rows of the kernels line for K10, K11 and K12, and the end-to-end
+    times of the unstructured SpMV entry points at config 2c.
+
+    Bounds count what each function needs, from the timed inputs: K10 reads
+    the products and row_ptr once and writes y (one add an entry); K11
+    reads the layout (octet, idx, vals, dest, fillers) and x once and
+    writes every ELL slot once (one multiply a gather slot); K12 reads and
+    writes each array once, and does a compare a key and two selects an
+    array for each of the network's n/2 pairs a stage (on the SIMT units,
+    counted at the float32 rate). Library yardsticks: cuSPARSE's CSR SpMV
+    (``torch.sparse_csr_tensor @ x``) of the 2c matrix for K10 and K11;
+    ``torch.sort`` of the flattened blocks carrying the payload through
+    ``gather`` for K12 (unstable; the stable variant beside it)."""
+    from spsparse_torch.ops import (plan_stages, segmented_row_sums,
+                                    segmented_row_sums_reference,
+                                    shuffle_gather, shuffle_gather_reference,
+                                    sort_blocks, sort_blocks_reference,
+                                    spmv_csr_segsum, spmv_shuffle)
+
+    c2, seg = un["c2"], un["segsum"]
+    prep, x, n, nnz = c2["prep"], c2["x"], c2["n"], c2["nnz"]
+    A_csr = torch_csr(torch, c2["host"], x.device)
+    lib_ms = float(np.median(time_ms(torch, lambda: A_csr @ x)))
+    rows = []
+
+    def row(name, matrix, ms, plain_ms, nbytes, ops, err, lib, dtype="f32",
+            **extra):
+        b_ms, b_by = bound_ms(nbytes, ops)
+        rows.append(dict(name=name, dtype=dtype, **KERNELS[name],
+                         launches=launches[name], max_abs_err=err, ms=ms,
+                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=lib, matrix=matrix, **extra))
+
+    prod, csr = seg["prod"], seg["csr"]
+    ms, plain_ms = compare_times(
+        torch, lambda: segmented_row_sums(prod, csr.row_ptr, nrows=n,
+                                          rows_per_block=256,
+                                          entries_per_block=1024),
+        lambda: segmented_row_sums_reference(prod, csr.row_ptr, n))
+    row("segmented_row_sums", "config 2c (CSR products)", ms, plain_ms,
+        4 * csr.nnz + 4 * (n + 1) + 4 * n, csr.nnz, seg["err"]["k10"],
+        lib_ms, n=n, nnz=csr.nnz)
+    ms, plain_ms = compare_times(torch, lambda: shuffle_gather(prep, x),
+                                 lambda: shuffle_gather_reference(prep, x),
+                                 reps=7, inner=5)
+    gslots = prep.n_batches * 1024
+    isz = prep.dest.element_size()
+    nbytes = (4 * prep.n_batches + gslots * (8 + isz)
+              + prep.filler_dest.shape[0] * isz + 4 * n + 4 * prep.n_slots)
+    row("shuffle_gather", "config 2c (shuffle layout)", ms, plain_ms, nbytes,
+        gslots, 0.0, lib_ms, n=n, nnz=nnz, batches=prep.n_batches,
+        gather_fill=c2["fill"])
+    keys, pay = un["sort"]["main"]
+    nblk, R, _ = keys.shape
+    nel = keys.numel()
+    ms, plain_ms = compare_times(
+        torch, lambda: sort_blocks((keys, pay)),
+        lambda: sort_blocks_reference((keys, pay)), reps=7, inner=5)
+    flat_k, flat_p = keys.reshape(nblk, -1), pay.reshape(nblk, -1)
+
+    def library_sort(stable):
+        s, order = torch.sort(flat_k, dim=-1, stable=stable)
+        return s, flat_p.gather(1, order)
+
+    sort_lib = float(np.median(time_ms(torch, lambda: library_sort(False),
+                                       reps=7, inner=5)))
+    sort_lib_stable = float(np.median(time_ms(
+        torch, lambda: library_sort(True), reps=7, inner=5)))
+    stages = plan_stages(R * 128)[2]
+    row("sort_blocks", f"({nblk}, {R}, 128) int32 key + float32 payload",
+        ms, plain_ms, 2 * 2 * 4 * nel, stages * (nel // 2) * (1 + 2 * 2),
+        0.0, sort_lib, dtype="i32 key, f32 payload",
+        library_stable_ms=sort_lib_stable, n=nel, nnz=nel)
+    ends = {
+        "spmv_shuffle (best_spmv) ms": float(np.median(time_ms(
+            torch, lambda: spmv_shuffle(prep, x), reps=7, inner=5))),
+        "spmv_csr_segsum ms": float(np.median(time_ms(
+            torch, lambda: spmv_csr_segsum(csr, x), reps=7, inner=5))),
+        "library csr @ x ms": lib_ms, "nnz": nnz,
+        "prepare_shuffle_spmv host s": c2["prepare_s"]}
+    for key in ("spmv_shuffle (best_spmv) ms", "spmv_csr_segsum ms",
+                "library csr @ x ms"):
+        ends[key.replace(" ms", " Gnnz/s")] = nnz / ends[key] / 1e6
+    return rows, ends
+
+
 def library_csr(torch, n, dev):
     """``torch.sparse_csr_tensor`` of the benchmark matrix ``B`` on the
     card: the library yardstick, timed here and used nowhere in the port."""
@@ -1412,6 +1760,8 @@ def main() -> int:
     from spsparse_torch.ops import (spgemm_tiled_pairs, spgemm_tiled_stream,
                                     spgemm_window, spmm_tiled_dense,
                                     spmm_tiled_onehot, spmm_tiled_window)
+    from spsparse_torch.ops import (segmented_row_sums, shuffle_gather,
+                                    sort_blocks)
     from spsparse_torch.solvers import cg_solve
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1436,7 +1786,10 @@ def main() -> int:
                 "spmm_tiled_onehot": spmm_tiled_onehot,
                 "spgemm_window": spgemm_window,
                 "spgemm_tiled_pairs": spgemm_tiled_pairs,
-                "spgemm_tiled_stream": spgemm_tiled_stream}
+                "spgemm_tiled_stream": spgemm_tiled_stream,
+                "segmented_row_sums": segmented_row_sums,
+                "shuffle_gather": shuffle_gather,
+                "sort_blocks": sort_blocks}
     torch.cuda.reset_peak_memory_stats()
     state, main_counts = run_path(torch, wrappers, main_path, torch, sp, dev)
     log(f"main path kernel launches: {main_counts}; peak device memory "
@@ -1471,12 +1824,22 @@ def main() -> int:
     for name in spgemm_kernels:
         require(spgemm_counts[name] > 0,
                 f"kernel {name} was not launched on the spgemm path")
+    torch.cuda.reset_peak_memory_stats()
+    un, un_counts = run_path(torch, wrappers, unstructured_path, torch, sp,
+                             dev)
+    log(f"unstructured path kernel launches: {un_counts}; peak device "
+        f"memory {torch.cuda.max_memory_allocated()} bytes")
+    un_kernels = ("segmented_row_sums", "shuffle_gather", "sort_blocks")
+    for name in un_kernels:
+        require(un_counts[name] > 0,
+                f"kernel {name} was not launched on the unstructured path")
     launches = {**main_counts, **{k: solve_counts[k] for k in
                                   ("spmm_dia_mrhs", "cg_solve_dia")},
                 **{k: spmm_counts[k] for k in spmm_kernels},
-                **{k: spgemm_counts[k] for k in spgemm_kernels}}
+                **{k: spgemm_counts[k] for k in spgemm_kernels},
+                **{k: un_counts[k] for k in un_kernels}}
 
-    # Phase 21: timing, kernel against plain version, in turns; the
+    # Phase 25: timing, kernel against plain version, in turns; the
     # library call where one PyTorch call computes the same function.
     t_timing = time.perf_counter()
     dia, mrhs = state["dia"], solve["mrhs"]
@@ -1542,8 +1905,10 @@ def main() -> int:
     rows += spmm_timings(torch, spmm, launches)
     spgemm_rows, spgemm_ends = spgemm_timings(torch, spg, launches)
     rows += spgemm_rows
+    un_rows, un_ends = unstructured_timings(torch, un, launches)
+    rows += un_rows
     torch.cuda.synchronize()
-    log(f"phase 21 timing ({time.perf_counter() - t_timing:.3f} s)")
+    log(f"phase 25 timing ({time.perf_counter() - t_timing:.3f} s)")
 
     for row in rows:
         print(json.dumps({
@@ -1561,6 +1926,9 @@ def main() -> int:
         "nvidia_smi": smi}), flush=True)
     print(json.dumps({"timing": "spgemm entry points, config 4",
                       **spgemm_ends, "device": card, "nvidia_smi": smi}),
+          flush=True)
+    print(json.dumps({"timing": "unstructured SpMV entry points, config 2c",
+                      **un_ends, "device": card, "nvidia_smi": smi}),
           flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

@@ -3,7 +3,8 @@
 The same library as :mod:`spsparse_tpu` — rank-N padded COO arrays,
 duplicate-consolidating sort, CSR/ELL/DIA views, the diag-scaled sparse
 multiply chain, SpMV/SpMM over DIA, BSR, tiled and prepared general
-operands, and NetCDF I/O — on PyTorch tensors, with the
+operands, SpGEMM, unstructured SpMV (the shuffle layout, the CSR segmented
+sum), the bitonic block sort, and NetCDF I/O — on PyTorch tensors, with the
 TPU's Pallas kernels rewritten as hand-written CUDA kernels for Hopper
 (``spsparse_torch/csrc``, built by :mod:`spsparse_torch.backend` on first
 use). Every kernel has a plain PyTorch version beside it, taken for CPU

@@ -67,6 +67,10 @@ _SIGNATURES = {
     "sps_spgemm_pairs_stream": [_I, _I, _P, _P, _P, _P, _P, _I, _P, _P],
     "sps_spgemm_window": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                           _I, _I, _P, _P],
+    "sps_segsum": [_P, _P, _LL, _I, _P, _P],
+    "sps_shuffle_gather": [_I, _P, _P, _P, _P, _P, _LL, _LL, _P, _LL, _LL,
+                           _P, _P],
+    "sps_block_sort": [_P, _P, _I, _I, _LL, _LL, _P],
 }
 
 

@@ -17,6 +17,8 @@ the JAX side is plain numpy (``np.asarray`` of a JAX array).
   port keeps the JAX package's arrays as they are, so these copy field for
   field (the live counts become Python ints); they take the JAX objects
   and read each field with ``np.asarray``.
+* :func:`prepared_shuffle_from_jax` — the unstructured SpMV's shuffle
+  layout, field for field (the port's arrays are the JAX package's).
 * :func:`tiled_blocks_from_jax`, :func:`tiled_gemm_plan_from_jax`,
   :func:`window_gemm_plan_from_jax` and :func:`esc_plan_from_jax` — the
   SpGEMM blocks and plans, field for field (the tiled and window plans are
@@ -48,6 +50,7 @@ from .ops.general import PreparedGather, PreparedGatherEll, PreparedGeneral
 from .ops.spgemm_planned import EscPlan
 from .ops.spgemm_tiled import TiledBlocks, TiledGemmPlan
 from .ops.spgemm_window import WindowGemmPlan
+from .ops.spmv_shuffle import PreparedShuffleSpMV
 from .ops.tiled_spmm import PreparedTiledDense, PreparedTiledRows
 from .ops.tiled_window import PreparedTiledWindow
 
@@ -57,7 +60,8 @@ __all__ = ["coo_from_numpy", "coo_to_numpy", "dia_from_numpy",
            "prepared_tiled_rows_from_jax", "prepared_tiled_dense_from_jax",
            "prepared_tiled_window_from_jax", "prepared_general_from_jax",
            "tiled_blocks_from_jax", "tiled_gemm_plan_from_jax",
-           "window_gemm_plan_from_jax", "esc_plan_from_jax"]
+           "window_gemm_plan_from_jax", "esc_plan_from_jax",
+           "prepared_shuffle_from_jax"]
 
 Tensor = torch.Tensor
 
@@ -232,3 +236,12 @@ def esc_plan_from_jax(plan, *, device=None) -> EscPlan:
     return EscPlan(**_fields(plan, ("ea", "eb", "seg", "out_indices"),
                              device), n_out=int(plan.n_out),
                    out_shape=tuple(int(s) for s in plan.out_shape))
+
+
+def prepared_shuffle_from_jax(prep, *, device=None) -> PreparedShuffleSpMV:
+    """The port's :class:`PreparedShuffleSpMV` holding a JAX
+    ``PreparedShuffleSpMV``'s arrays."""
+    return PreparedShuffleSpMV(
+        **_fields(prep, ("octet", "idx", "vals", "dest", "filler_dest",
+                         "extra_rows", "extra_vrows"), device),
+        n_vrows=int(prep.n_vrows), ell_k=int(prep.ell_k), shape=_shape(prep))

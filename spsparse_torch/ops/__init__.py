@@ -1,7 +1,8 @@
 """Sparse operator layer: multiply chains, SpGEMM (ESC, planned ESC and the
 tiled band and pair kernels), SpMV/SpMM, DIA kernels (SpMV, chain,
 multi-RHS SpMM, CG), tiled general SpMM kernels (super-row window,
-dense-block, one-hot) and the prepared general path."""
+dense-block, one-hot), the prepared general path, unstructured SpMV (the
+shuffle layout and the CSR segmented sum) and the bitonic block sort."""
 
 from .multiply_sparse import (multiply, multiply_mv, multiply_chain,
                               expansion_size)
@@ -15,6 +16,14 @@ from .spgemm_window import (plan_window_spgemm, spgemm_window,
                             spgemm_window_reference)
 from .spmm import spmv, spmm, spmm_bsr
 from .spmv_kernels import spmv_dia, spmv_ell, best_spmv, best_spmm
+from .spmv_shuffle import (PreparedShuffleSpMV, prepare_shuffle_spmv,
+                           spmv_shuffle, spmv_shuffle_reference,
+                           shuffle_gather, shuffle_gather_reference)
+from .segsum import (segmented_row_sums, segmented_row_sums_reference,
+                     csr_products, spmv_csr_segsum, pad_products,
+                     max_entries_per_rowblock)
+from .block_sort import (plan_stages, sort_blocks, sort_blocks_reference,
+                         sort_blocks_stable)
 from .dia_stream import (PreparedDIA, prepare_dia, spmv_dia_stream,
                          spmv_dia_stream_reference)
 from .dia_chain import spmv_dia_chain, spmv_dia_chain_reference
@@ -43,6 +52,12 @@ __all__ = [
     "plan_window_spgemm", "spgemm_window", "spgemm_window_reference",
     "spmv", "spmm", "spmm_bsr",
     "spmv_dia", "spmv_ell", "best_spmv", "best_spmm",
+    "PreparedShuffleSpMV", "prepare_shuffle_spmv", "spmv_shuffle",
+    "spmv_shuffle_reference", "shuffle_gather", "shuffle_gather_reference",
+    "segmented_row_sums", "segmented_row_sums_reference", "csr_products",
+    "spmv_csr_segsum", "pad_products", "max_entries_per_rowblock",
+    "plan_stages", "sort_blocks", "sort_blocks_reference",
+    "sort_blocks_stable",
     "PreparedDIA", "prepare_dia", "spmv_dia_stream",
     "spmv_dia_stream_reference",
     "spmv_dia_chain", "spmv_dia_chain_reference",

@@ -8,14 +8,12 @@ Counterpart of :mod:`spsparse_tpu.ops.spmv_kernels`:
 * :func:`best_spmv` — routes each operand format to its fastest path:
   :class:`SparseDIA` / :class:`PreparedDIA` go to kernel K1
   (:func:`spmv_dia_stream`), which launches the CUDA kernel for CUDA
-  tensors and runs its plain version for CPU tensors.
+  tensors and runs its plain version for CPU tensors; a
+  :class:`PreparedShuffleSpMV` goes to kernel K11 (:func:`spmv_shuffle`).
 * :func:`best_spmm` — the same dispatch for a dense block ``X``: the
   prepared general and tiled layouts go to kernels K5
   (:func:`spmm_tiled_window`), K6 (:func:`spmm_tiled_dense`) and K7
   (:func:`spmm_tiled_onehot`), BSR to :func:`spmm_bsr`.
-
-``PreparedShuffleSpMV``, the one operand format of the JAX package that is
-not ported yet, raises ``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -31,6 +29,7 @@ from .dia_stream import PreparedDIA, spmv_dia_stream
 from .general import PreparedGeneral, spmm_general, spmv_general
 from .spmm import (_gather_rows, spmm as _spmm_generic, spmm_bsr,
                    spmv as _spmv_generic)
+from .spmv_shuffle import PreparedShuffleSpMV, spmv_shuffle
 from .tiled_ops import spmm_tiled
 from .tiled_spmm import (PreparedTiledDense, PreparedTiledRows,
                          spmm_tiled_dense, spmm_tiled_onehot)
@@ -39,19 +38,6 @@ from .tiled_window import PreparedTiledWindow, spmm_tiled_window
 __all__ = ["spmv_dia", "spmv_ell", "best_spmv", "best_spmm"]
 
 Tensor = torch.Tensor
-
-# JAX operand types whose port is still queued (ROADMAP queue 1).
-_NOT_PORTED = {
-    "PreparedShuffleSpMV": "ROADMAP item 18 (ops/spmv_shuffle.py)",
-}
-
-
-def _reject_unported(a) -> None:
-    item = _NOT_PORTED.get(type(a).__name__)
-    if item is not None:
-        raise NotImplementedError(
-            f"{type(a).__name__} operands are not ported yet: {item}")
-
 
 def spmv_dia(dia: SparseDIA, x: Tensor) -> Tensor:
     """``y = A @ x`` for diagonal storage: ``y[i] += data[d,i] * x[i+off]``
@@ -76,13 +62,15 @@ def spmv_ell(ell: SparseELL, x: Tensor) -> Tensor:
 
 def best_spmv(a, x: Tensor) -> Tensor:
     """Format-dispatched SpMV. DIA operands go to kernel K1 (float32
-    result); a :class:`PreparedGeneral` to :func:`spmv_general`; ELL to
+    result); a :class:`PreparedShuffleSpMV` to :func:`spmv_shuffle` (K11,
+    float32); a :class:`PreparedGeneral` to :func:`spmv_general`; ELL to
     :func:`spmv_ell`; CSR/COO to the generic CSR path."""
     if isinstance(a, (SparseDIA, PreparedDIA)):
         return spmv_dia_stream(a, x)
+    if isinstance(a, PreparedShuffleSpMV):
+        return spmv_shuffle(a, x)
     if isinstance(a, PreparedGeneral):
         return spmv_general(a, x)
-    _reject_unported(a)
     if isinstance(a, SparseELL):
         return spmv_ell(a, x)
     return _spmv_generic(a, x)
@@ -106,7 +94,6 @@ def best_spmm(a, X: Tensor) -> Tensor:
         return spmm_tiled(a, X)
     if isinstance(a, SparseBSR):
         return spmm_bsr(a, X)
-    _reject_unported(a)
     X = operand_tensor(X, a.vals.device if isinstance(a, SparseELL)
                        else a.device)
     if isinstance(a, SparseDIA):

@@ -187,22 +187,20 @@ def aslinearoperator(a) -> LinearOperator:
     * :class:`SparseBSR` / :class:`SparseTiledCOO` — ``matmat`` through
       ``best_spmm``; a vector rides as a one-column block.
     * :class:`~spsparse_torch.ops.PreparedDIA` /
-      :class:`~spsparse_torch.ops.PreparedGeneral` — ``matvec`` through
+      :class:`~spsparse_torch.ops.PreparedGeneral` /
+      :class:`~spsparse_torch.ops.PreparedShuffleSpMV` — ``matvec`` through
       ``best_spmv``; ``matmat`` is the column loop.
-
-    ``PreparedShuffleSpMV``, the operand type of the JAX package that is
-    not ported yet, raises ``NotImplementedError`` naming its ROADMAP item.
     """
     from ..core.bsr import SparseBSR
     from ..core.tiled import SparseTiledCOO
     from ..ops.dia_stream import PreparedDIA
     from ..ops.general import PreparedGeneral
     from ..ops.spmm import spmm, spmv
-    from ..ops.spmv_kernels import _reject_unported, best_spmm, best_spmv
+    from ..ops.spmv_kernels import best_spmm, best_spmv
+    from ..ops.spmv_shuffle import PreparedShuffleSpMV
 
     if isinstance(a, LinearOperator):
         return a
-    _reject_unported(a)
     if isinstance(a, SparseCOO):
         if a.rank != 2:
             raise SpSparseError("aslinearoperator needs a rank-2 array")
@@ -220,7 +218,7 @@ def aslinearoperator(a) -> LinearOperator:
         return LinearOperator(
             a.shape, lambda x: best_spmm(a, x[:, None])[:, 0], None,
             matmat=lambda X: best_spmm(a, X))
-    if isinstance(a, (PreparedDIA, PreparedGeneral)):
+    if isinstance(a, (PreparedDIA, PreparedGeneral, PreparedShuffleSpMV)):
         return LinearOperator(a.shape, lambda x: best_spmv(a, x), None)
     arr = as_tensor(a)
     if arr.ndim != 2:

@@ -110,11 +110,21 @@ def test_best_spmv_routes_dia_to_k1_plain_on_cpu():
 
 
 def test_best_spmv_rejects_unported_formats():
-    class PreparedShuffleSpMV:   # the JAX package's type name, not ported yet
+    # Every operand format of the JAX package is ported (the shuffle layout
+    # in slice 5): best_spmv routes the real layout, and an object that only
+    # bears its name is not taken for it.
+    from spsparse_torch.core.coo import SparseCOO
+    from spsparse_torch.ops import prepare_shuffle_spmv
+
+    class PreparedShuffleSpMV:
         pass
 
-    with pytest.raises(NotImplementedError, match="ROADMAP item 18"):
+    with pytest.raises((AttributeError, TypeError)):
         best_spmv(PreparedShuffleSpMV(), torch.zeros(3))
+    dense = torch.tensor([[0.0, 2.0, 0.0], [1.0, 0.0, -3.0]])
+    x = torch.tensor([0.5, -1.0, 2.0])
+    prep = prepare_shuffle_spmv(SparseCOO.from_dense(dense, device="cpu"))
+    torch.testing.assert_close(best_spmv(prep, x), dense @ x)
 
 
 def _prep(n=16, K=3, dtype=torch.float32):

@@ -590,9 +590,9 @@ def test_extract_diagonal_and_blocks_match_jax():
 
 @pytest.mark.parametrize("name", ["SparseBSR", "SparseTiledCOO"])
 def test_unported_formats_name_their_roadmap_item(name):
-    # BSR and tiled operands are ported (slice 3): extract_diagonal and
-    # aslinearoperator match the JAX package on them. The one operand type
-    # still queued, PreparedShuffleSpMV, names its ROADMAP item.
+    # Every operand type is ported: BSR and tiled operands (slice 3), on
+    # which extract_diagonal and aslinearoperator match the JAX package, and
+    # the shuffle layout (slice 5), whose operator matches the JAX one.
     rng = np.random.default_rng(33)
     A = np.where(rng.random((24, 24)) < 0.3, rng.uniform(-1, 1, (24, 24)),
                  0).astype(np.float32)
@@ -608,9 +608,12 @@ def test_unported_formats_name_their_roadmap_item(name):
     close(ts.aslinearoperator(ta).matvec(torch.from_numpy(x)),
           js.aslinearoperator(ja).matvec(jnp.asarray(x)), **f32)
     close(ts.aslinearoperator(ta).matvec(torch.from_numpy(x)), A @ x, **f32)
-    fake = type("PreparedShuffleSpMV", (), {})()
-    with pytest.raises(NotImplementedError, match="ROADMAP item 18"):
-        ts.aslinearoperator(fake)
+    from spsparse_torch.ops import prepare_shuffle_spmv
+    from spsparse_tpu.ops.spmv_shuffle import prepare_shuffle_spmv as j_prep
+
+    close(ts.aslinearoperator(prepare_shuffle_spmv(tc)).matvec(
+        torch.from_numpy(x)), js.aslinearoperator(j_prep(jc)).matvec(
+        jnp.asarray(x)), **f32)
 
 
 def test_neumann_k1_is_jacobi_and_rejects_k0(system):

@@ -8,8 +8,10 @@ values from ``default_rng(0)``) and ``S = (B + B^T)/2``, and bench config
 3's regridding matrix (m = 2**18, 50 entries a row, X of 128 columns) with
 its tiled layouts, the one_hot route's layout of ``chip_smoke.py``'s
 phase 14, and bench config 4's matrix (2**17 rows) with its band plan and
-pair plans (A A^T, and C C for C = A A^T), as ``chip_smoke.py`` does; runs
-each wrapper (and the
+pair plans (A A^T, and C C for C = A A^T), and bench config 2c (2**20 rows,
+10 uniform-random columns a row) with its shuffle layout and CSR products
+and the (1024, 64, 128) block sort, as ``chip_smoke.py`` does; runs each
+wrapper (and the
 library calls that ``chip_smoke.py`` uses as yardsticks) 10 times under
 ``torch.profiler``, and prints one JSON line per workload: the CUDA kernels
 it ran, their count and device time, and the device time per call. Needs
@@ -40,6 +42,9 @@ from spsparse_torch.ops import (best_spgemm, cg_solve_dia,  # noqa: E402
                                 spmm_tiled_dense, spmm_tiled_onehot,
                                 spmm_tiled_window, spmv_dia_chain,
                                 spmv_dia_stream)
+from spsparse_torch.ops import (csr_products,  # noqa: E402
+                                prepare_shuffle_spmv, segmented_row_sums,
+                                shuffle_gather, sort_blocks, spmv_shuffle)
 
 CALLS = 10
 
@@ -110,6 +115,18 @@ def main() -> int:
     plan_n = plan_tiled_spgemm(tc, tc)
     A64 = cs._csr_of(A4)
     L4, R4 = cs.torch_csr(torch, A64, dev), cs.torch_csr(torch, A64.T, dev)
+    r2, c2, v2, x2 = cs.cfg2c_entries(n)
+    A2 = cs.build_coo(sp, dev, (n, n), r2, c2, v2)
+    shuf = prepare_shuffle_spmv(A2)
+    csr2 = sp.to_csr(A2)
+    x2 = torch.from_numpy(x2).to(dev)
+    prod2 = csr_products(csr2, x2)
+    A2_csr = cs.torch_csr(torch, cs.csr_host(r2, c2, v2, (n, n)), dev)
+    keys = torch.from_numpy(rng.integers(0, 1 << 30, (
+        cs.SORT_NBLK, 64, 128)).astype(np.int32)).to(dev)
+    pay = torch.from_numpy(rng.uniform(-1, 1, keys.shape).astype(
+        np.float32)).to(dev)
+    fk, fp = keys.reshape(cs.SORT_NBLK, -1), pay.reshape(cs.SORT_NBLK, -1)
     work = {
         "K1 f32": lambda: spmv_dia_stream(pf, x),
         "K1 bf16": lambda: spmv_dia_stream(pb, x),
@@ -144,6 +161,17 @@ def main() -> int:
         "K13 f32, config 4 C C pairs": lambda: spgemm_tiled_stream(tc, tc,
                                                                    plan_n),
         "library A4_csr @ A4T_csr, config 4": lambda: L4 @ R4,
+        "K10 f32, config 2c CSR products": lambda: segmented_row_sums(
+            prod2, csr2.row_ptr, nrows=n, rows_per_block=256,
+            entries_per_block=1024),
+        "K11 f32, config 2c shuffle layout": lambda: shuffle_gather(shuf,
+                                                                    x2),
+        "spmv_shuffle, config 2c": lambda: spmv_shuffle(shuf, x2),
+        "library A2_csr @ x, config 2c": lambda: A2_csr @ x2,
+        "K12 (1024, 64, 128) key + payload": lambda: sort_blocks((keys,
+                                                                  pay)),
+        "library torch.sort + gather, (1024, 8192)": lambda: fp.gather(
+            1, torch.sort(fk, dim=-1).indices),
     }
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]

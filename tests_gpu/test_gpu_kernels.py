@@ -12,7 +12,12 @@ CG iterations against its plain version and the composed solve over K1
 (the rounding differences compound through the recurrences). K5-K7
 (tiled general SpMM) and K8, K9, K13 (tiled SpGEMM): float32 rtol 1e-5
 with atol 1e-5 of max|ref|; bfloat16 blocks atol 1e-4 of max|ref| (exact
-products, float32 sums in another order); gradients rtol/atol 1e-4.
+products, float32 sums in another order); gradients rtol/atol 1e-4. K10
+rtol/atol 1e-5 (another sum order); K11's slot grid bit for bit (one
+multiply a slot, the same slots as the plain sort pipeline), its SpMV
+rtol 1e-5 against the plain version and float64; K12 keys exact, payloads
+exact when the sort is stable and otherwise as a multiset within each run
+of equal keys (a bitonic network is not stable).
 """
 
 import numpy as np
@@ -515,3 +520,224 @@ def test_spgemm_cuda_tensors_never_reach_plain_versions(monkeypatch):
         got = C.to_dense().cpu().numpy()
         np.testing.assert_allclose(got, want, rtol=1e-5,
                                    atol=1e-5 * np.abs(want).max())
+
+
+# ----------------------------------------------------------------------
+# K10, K11, K12: unstructured SpMV and the block sort
+# ----------------------------------------------------------------------
+def shuffle_case(dev, kind):
+    """``(prep, x, dense A in float64)`` on ``dev``: ``uniform`` (config
+    2c's kind, ncols not a multiple of 128), ``heavy`` (rows split at
+    ell_k 8), ``dups`` (duplicates and empty rows) or ``empty``."""
+    import spsparse_torch as sp
+    from spsparse_torch.ops import prepare_shuffle_spmv
+
+    rng = np.random.default_rng({"uniform": 50, "heavy": 51, "dups": 52,
+                                 "empty": 53}[kind])
+    shape, ell_k = (3000, 2900), 16
+    if kind == "uniform":
+        r = np.repeat(np.arange(3000), 10)
+        c = rng.integers(0, 2900, r.size)
+    elif kind == "heavy":
+        shape, ell_k = (500, 3000), 8
+        r = np.concatenate([np.full(2000, 7), rng.integers(0, 500, 3000)])
+        c = np.concatenate([rng.permutation(3000)[:2000],
+                            rng.integers(0, 3000, 3000)])
+    elif kind == "dups":
+        r = np.repeat(np.arange(0, 3000, 3), 4)
+        c = rng.integers(0, 40, r.size)
+    else:
+        r = c = np.zeros(0, np.int64)
+    v = rng.uniform(-1, 1, r.size).astype(np.float32)
+    b = sp.CooBuilder(shape, dtype=np.float32)
+    if r.size:
+        b.add_many(np.stack([r, c], 1), v)
+    dense = np.zeros(shape)
+    np.add.at(dense, (r, c), v.astype(np.float64))
+    x = torch.from_numpy(rng.uniform(-1, 1, shape[1]).astype(np.float32))
+    return (prepare_shuffle_spmv(b.build(device=dev), ell_k=ell_k),
+            x.to(dev), dense)
+
+
+@pytest.mark.parametrize("kind", ["uniform", "heavy", "dups", "empty"])
+def test_k11_slot_grid_bitwise_and_spmv(kind):
+    from spsparse_torch.ops import (best_spmv, shuffle_gather,
+                                    shuffle_gather_reference,
+                                    spmv_shuffle_reference)
+
+    dev = _cuda()
+    prep, x, dense = shuffle_case(dev, kind)
+    if kind == "heavy":
+        assert prep.extra_rows.shape[0] > 0
+    dirty_cache(dev, prep.n_slots * 4)
+    before = shuffle_gather.launches
+    slots = shuffle_gather(prep, x)
+    torch.cuda.synchronize()
+    assert shuffle_gather.launches == before + 1
+    assert not bool(torch.isnan(slots).any())
+    assert torch.equal(slots, shuffle_gather_reference(prep, x))
+    y = best_spmv(prep, x)
+    torch.testing.assert_close(y, spmv_shuffle_reference(prep, x),
+                               rtol=1e-5, atol=1e-5)
+    want = dense @ x.cpu().numpy().astype(np.float64)
+    np.testing.assert_allclose(y.cpu().numpy(), want, rtol=1e-5,
+                               atol=1e-5 * max(np.abs(want).max(), 1.0))
+
+
+def test_k11_int64_dest():
+    import dataclasses
+
+    from spsparse_torch.ops import shuffle_gather, shuffle_gather_reference
+
+    dev = _cuda()
+    prep, x, _ = shuffle_case(dev, "uniform")
+    wide = dataclasses.replace(prep, dest=prep.dest.long(),
+                               filler_dest=prep.filler_dest.long())
+    dirty_cache(dev, prep.n_slots * 4)
+    assert torch.equal(shuffle_gather(wide, x),
+                       shuffle_gather_reference(prep, x))
+
+
+@pytest.mark.parametrize("case", ["random", "tail_empty_rows", "skewed"])
+def test_k10_matches_plain(case):
+    from spsparse_torch.ops import (segmented_row_sums,
+                                    segmented_row_sums_reference)
+
+    dev = _cuda()
+    rng = np.random.default_rng(60)
+    if case == "random":
+        counts = rng.integers(0, 20, 5000)
+    elif case == "tail_empty_rows":        # rows not a multiple of 256
+        counts = np.zeros(1000, np.int64)
+        counts[[0, 999]] = 1
+    else:                                  # one row of 400 among rows of one
+        counts = np.ones(64, np.int64)
+        counts[0] = 400
+        counts[5:9] = 0
+    rp = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    prod = rng.uniform(-1, 1, int(rp[-1]) + 100).astype(np.float32)
+    args = (torch.from_numpy(prod).to(dev), torch.from_numpy(rp).to(dev))
+    before = segmented_row_sums.launches
+    y = segmented_row_sums(*args, nrows=counts.size, rows_per_block=256,
+                           entries_per_block=128)
+    torch.cuda.synchronize()
+    assert segmented_row_sums.launches == before + 1
+    ref = segmented_row_sums_reference(*args, counts.size)
+    torch.testing.assert_close(y, ref, rtol=1e-5, atol=1e-5)
+    assert bool((y[torch.from_numpy(counts == 0).to(dev)] == 0).all())
+
+
+def test_k10_spmv_csr_segsum_matches_scipy():
+    import spsparse_torch as sp
+    from spsparse_torch.ops import spmv_csr_segsum
+
+    dev = _cuda()
+    rng = np.random.default_rng(61)
+    A = coo_of(dev, (4000, 3000), rng.integers(0, 4000, 30000),
+               rng.integers(0, 3000, 30000), 62)
+    idx = A.indices[: A.nnz].cpu().numpy()
+    dense = np.zeros(A.shape)
+    np.add.at(dense, (idx[:, 0], idx[:, 1]),
+              A.vals[: A.nnz].cpu().numpy().astype(np.float64))
+    x = rng.uniform(-1, 1, 3000).astype(np.float32)
+    y = spmv_csr_segsum(sp.to_csr(A), torch.from_numpy(x).to(dev))
+    want = dense @ x.astype(np.float64)
+    np.testing.assert_allclose(y.cpu().numpy(), want, rtol=1e-5,
+                               atol=1e-5 * np.abs(want).max())
+
+
+def canon_blocks(arrays):
+    """Blocks sorted by keys and payload bits: equal iff the keys are equal
+    and the payloads agree as a multiset within each run of equal keys."""
+    from spsparse_torch.ops import sort_blocks_reference
+
+    bits = tuple(a.view(torch.int32) for a in arrays)
+    return sort_blocks_reference(bits, num_keys=len(bits))
+
+
+@pytest.mark.parametrize("shape,num_keys,n_payload", [
+    ((3, 1, 128), 1, 1), ((5, 8, 128), 1, 1), ((4, 32, 128), 2, 1),
+    ((2, 64, 128), 1, 3),
+    ((3, 256, 128), 2, 1),       # 384 KB a block: past the smem chunk
+    ((1, 1024, 128), 1, 1),      # 1 MB a block: many global passes
+])
+def test_k12_matches_plain(shape, num_keys, n_payload):
+    from spsparse_torch.ops import sort_blocks, sort_blocks_reference
+
+    dev = _cuda()
+    rng = np.random.default_rng(sum(shape) + num_keys)
+    keys = [torch.from_numpy(rng.integers(-50, 50 if k else 1 << 20, shape)
+                             .astype(np.int32)).to(dev)
+            for k in range(num_keys)]
+    pays = [torch.from_numpy(rng.uniform(-1, 1, shape).astype(np.float32))
+            .to(dev) for _ in range(n_payload)]
+    arrays = tuple(keys + pays)
+    dirty_cache(dev, sum(a.numel() for a in arrays) * 4)
+    before = sort_blocks.launches
+    got = sort_blocks(arrays, num_keys=num_keys)
+    torch.cuda.synchronize()
+    assert sort_blocks.launches == before + 1
+    ref = sort_blocks_reference(arrays, num_keys=num_keys)
+    for g, r in zip(got[:num_keys], ref[:num_keys]):
+        assert torch.equal(g, r)
+    for g, r in zip(canon_blocks(got), canon_blocks(ref)):
+        assert torch.equal(g, r)
+
+
+@pytest.mark.parametrize("key_bound", [8, None])
+def test_k12_stable_is_exact(key_bound):
+    from spsparse_torch.ops import sort_blocks_reference, sort_blocks_stable
+
+    dev = _cuda()
+    rng = np.random.default_rng(70)
+    kk = torch.from_numpy(rng.integers(0, 8, (6, 16, 128)).astype(
+        np.int32)).to(dev)
+    pay = torch.arange(kk.numel(), dtype=torch.int32, device=dev).reshape(
+        kk.shape)
+    got = sort_blocks_stable(kk, (pay,), key_bound=key_bound)
+    for g, r in zip(got, sort_blocks_reference((kk, pay))):
+        assert torch.equal(g, r)
+
+
+def test_k12_rejects_bad_blocks():
+    from spsparse_torch.ops import sort_blocks
+
+    dev = _cuda()
+    with pytest.raises(ValueError):
+        sort_blocks((torch.zeros((1, 7, 128), dtype=torch.int32,
+                                 device=dev),))
+    with pytest.raises(TypeError):
+        sort_blocks((torch.zeros((1, 8, 128), device=dev),))
+
+
+def test_unstructured_cuda_tensors_never_reach_plain_versions(monkeypatch):
+    import importlib
+
+    import spsparse_torch as sp
+    from spsparse_torch.ops import (best_spmv, sort_blocks,
+                                    sort_blocks_stable, spmv_csr_segsum)
+
+    sh_mod = importlib.import_module("spsparse_torch.ops.spmv_shuffle")
+    sg_mod = importlib.import_module("spsparse_torch.ops.segsum")
+    bs_mod = importlib.import_module("spsparse_torch.ops.block_sort")
+    dev = _cuda()
+    prep, x, dense = shuffle_case(dev, "heavy")
+    want = dense @ x.cpu().numpy().astype(np.float64)
+    csr = sp.to_csr(coo_of(dev, (500, 3000), np.arange(500) % 500,
+                           np.arange(500) * 5, 80))
+    keys = torch.from_numpy(np.random.default_rng(81).integers(
+        0, 9, (2, 8, 128)).astype(np.int32)).to(dev)
+    want_keys = torch.sort(keys.reshape(2, -1), dim=1).values
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached a plain version")
+
+    monkeypatch.setattr(sh_mod, "shuffle_gather_reference", refuse)
+    monkeypatch.setattr(sg_mod, "segmented_row_sums_reference", refuse)
+    monkeypatch.setattr(bs_mod, "sort_blocks_reference", refuse)
+    np.testing.assert_allclose(best_spmv(prep, x).cpu().numpy(), want,
+                               rtol=1e-5, atol=1e-5 * np.abs(want).max())
+    assert spmv_csr_segsum(csr, torch.ones(3000, device=dev)).shape == (500,)
+    assert torch.equal(sort_blocks((keys,))[0].reshape(2, -1), want_keys)
+    assert torch.equal(sort_blocks_stable(keys, key_bound=9)[0].reshape(
+        2, -1), want_keys)
