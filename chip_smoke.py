@@ -17,7 +17,9 @@ so the script exits non-zero and prints no result line):
    2**18-row matrix of the same family and hold them against a scipy.sparse
    float64 oracle on the host.
 4. ``to_dia`` + ``prepare_dia`` (float32 and bfloat16) + ``best_spmv``:
-   kernel K1 against its plain PyTorch version on the card.
+   kernel K1 against its plain PyTorch version on the card; a float64
+   ``SparseDIA`` through ``best_spmv`` (plain PyTorch in float64, the JAX
+   package's route) against scipy float64.
 5. ``spmv_dia_chain`` (64 iterations, scale 0.3): kernel K2 against its
    plain version on the card.
 6. NetCDF round trip of the phase-3 product: exact ``to_lists()`` equality.
@@ -50,7 +52,7 @@ from ``default_rng(0)``):
     the plain version and a float64 scipy product on 4096 sampled rows.
 13. K6: ``spmm_tiled_dense`` on ``to_tiled_dense`` of the window layout and
     on ``prepare_tiled_dense`` (float32, bfloat16), against its plain
-    version and against K5.
+    version, against K5 and against the float64 scipy rows.
 14. K7: ``spmm_tiled_onehot`` on ``prepare_tiled_rows`` of the same tiles,
     against its plain version and K6; a one-hot-tier matrix (40-48 entries
     in the diagonal tile of each block row) through ``prepare_general``
@@ -97,9 +99,10 @@ columns a row, values uniform(-1, 1), x uniform(-1, 1), all from
     pointer (empty rows, one row of 4096).
 24. K12: ``sort_blocks`` on (1024, 64, 128) int32 keys with a float32
     payload, two keys, R = 1, (8, 256, 128) with three arrays (past the
-    shared-memory chunk); ``sort_blocks_stable`` packed and not. Keys
-    exact, payloads exact when stable and otherwise as a multiset within
-    each run of equal keys.
+    shared-memory chunk), float32 keys (with ties, -0.0 and infinities) and
+    ten arrays (keys through K12 with a position payload, then a gather);
+    ``sort_blocks_stable`` packed and not. Keys exact, payloads exact when
+    stable and otherwise as a multiset within each run of equal keys.
 25. Time every kernel against its plain version (CUDA events, in turns:
     plain, kernel, kernel, plain), and one PyTorch library call computing
     the same function where there is one (``torch.sparse_csr_tensor``
@@ -110,7 +113,9 @@ columns a row, values uniform(-1, 1), x uniform(-1, 1), all from
     end to end, the ESC ``spgemm_aat`` and the planned apply. K10 and K11
     at config 2c against cuSPARSE's CSR SpMV, with ``spmv_shuffle`` and
     ``spmv_csr_segsum`` end to end in nnz/s; K12 against ``torch.sort``
-    carrying the payload through ``gather``.
+    carrying the payload through ``gather``. K6 and K11 are also timed
+    against their earlier designs (PR 3's SIMT K6, PR 5's scatter K11),
+    kept in the kernel library as yardsticks and called only here.
 
 The launch counters of the kernel wrappers are reset before each path and
 read after it; a kernel of the path launched no time there fails the run.
@@ -358,6 +363,18 @@ def phase_dia(torch, sp, dev, A, vals):
                     spmv_dia_stream_reference(out["f32"], x).cpu().numpy(),
                     1e-5, 1e-5)
     require(ok, f"K1 on a SparseDIA operand (max abs err {err})")
+    # A float64 operand takes the plain float64 route (K1 never took
+    # float64): float64 out, within 1e-12 of scipy float64 (the same
+    # products summed in another order).
+    dia64 = sp.SparseDIA(data=dia.data.double(), offsets=dia.offsets,
+                         shape=dia.shape)
+    y64 = best_spmv(dia64, x.double())
+    sync(torch, dev)
+    require(y64.dtype == torch.float64, f"float64 DIA SpMV gave {y64.dtype}")
+    ok, out["err"]["f64"] = close(
+        y64.cpu().numpy(), scipy_banded(n) @ x.cpu().numpy().astype(
+            np.float64), 1e-12, 1e-12)
+    require(ok, f"float64 DIA best_spmv off scipy ({out['err']['f64']})")
     return out
 
 
@@ -725,7 +742,7 @@ def phase_dense(torch, sp, dev, reg, win):
                                     to_tiled_dense)
 
     X = reg["X"]
-    out = {"err": {}}
+    out = {"err": {}, "sampled_err": {}}
     rec = to_tiled_dense(win["prep_bf16"])
     Y = spmm_tiled_dense(rec, X)
     sync(torch, dev)
@@ -741,6 +758,8 @@ def phase_dense(torch, sp, dev, reg, win):
                          f"K6 {name} vs plain", bf16)
         out["err"][name] = max(err, check_pair(Y, win[f"Y_{name}"],
                                                f"K6 {name} vs K5", bf16))
+        out["sampled_err"][name] = check_sampled(
+            Y, win["sampled"], win["sampled_ref"], f"K6 {name}", bf16)
         out[name] = prep
         out[f"Y_{name}"] = Y
     return out
@@ -867,7 +886,8 @@ def spmm_path(torch, sp, dev, m=SPMM_M, m_onehot=SPMM_M, m_3b=CFG3B_M,
         f"{win['sampled_err']} ({time.perf_counter() - t0:.3f} s)")
     t0 = time.perf_counter()
     dense = phase_dense(torch, sp, dev, reg, win)
-    log(f"phase 13 K6: max abs err {dense['err']} "
+    log(f"phase 13 K6: max abs err {dense['err']} vs plain and K5, "
+        f"{dense['sampled_err']} vs float64 rows "
         f"({time.perf_counter() - t0:.3f} s)")
     t0 = time.perf_counter()
     onehot = phase_onehot(torch, sp, dev, reg, dense, m_onehot, m_3b)
@@ -1279,10 +1299,21 @@ def same_up_to_ties(torch, got, ref, num_keys: int, what: str) -> None:
             f"K12 {what}: payloads differ within runs of equal keys")
 
 
+def float_keys(rng, shape):
+    """float32 keys with ties, both zeros, infinities and subnormals."""
+    pool = np.array([0.0, -0.0, np.inf, -np.inf, 1e-45, -1e-45, 1.5, -1.5],
+                    np.float32)
+    k = rng.uniform(-4, 4, shape).astype(np.float32).round(1)
+    pick = rng.random(shape) < 0.1
+    k[pick] = pool[rng.integers(0, pool.size, int(pick.sum()))]
+    return k
+
+
 def phase_sort(torch, dev, nblk):
     """Phase 24: K12 on (nblk, 64, 128) int32 keys with a float32 payload,
-    two keys, sort_blocks_stable packed and not (exact), R = 1, and
-    (8, 256, 128) with three arrays (past the shared-memory chunk)."""
+    two keys, sort_blocks_stable packed and not (exact), R = 1,
+    (8, 256, 128) with three arrays (past the shared-memory chunk), float32
+    keys and ten arrays."""
     from spsparse_torch.ops import (sort_blocks, sort_blocks_reference,
                                     sort_blocks_stable)
 
@@ -1298,6 +1329,7 @@ def phase_sort(torch, dev, nblk):
         return t(rng.uniform(-1, 1, shape).astype(np.float32))
 
     main = (ints(1 << 30, (nblk, 64, 128)), floats((nblk, 64, 128)))
+    nb8 = max(nblk // 8, 1)
     cases = [("(nblk, 64, 128) key + payload", main, 1),
              ("two keys", (ints(8, (nblk // 4, 32, 128)),
                            ints(1 << 20, (nblk // 4, 32, 128)),
@@ -1306,7 +1338,12 @@ def phase_sort(torch, dev, nblk):
                         floats((nblk, 1, 128))), 1),
              ("(8, 256, 128) three arrays", (ints(64, (8, 256, 128)),
                                              ints(1 << 30, (8, 256, 128)),
-                                             floats((8, 256, 128))), 2)]
+                                             floats((8, 256, 128))), 2),
+             ("float32 keys", (t(float_keys(rng, (nblk // 4, 64, 128))),
+                               floats((nblk // 4, 64, 128))), 1),
+             ("ten arrays", (ints(16, (nb8, 16, 128)),
+                             t(float_keys(rng, (nb8, 16, 128))))
+              + tuple(floats((nb8, 16, 128)) for _ in range(8)), 2)]
     for what, arrays, nk in cases:
         dirty_cache(torch, dev, sum(a.numel() for a in arrays) * 4)
         got = sort_blocks(arrays, num_keys=nk)
@@ -1330,9 +1367,12 @@ def unstructured_path(torch, sp, dev, n=N, heavy_n=HEAVY_N,
     t0 = time.perf_counter()
     c2 = phase_2c(torch, sp, dev, n)
     p = c2["prep"]
+    slot_bytes = sum(t.numel() * t.element_size()
+                     for t in (p.ell_cols, p.ell_vals))
     log(f"phase 21 config 2c: {c2['nnz']} entries, B {p.n_batches}, n_vrows "
         f"{p.n_vrows}, fillers {p.filler_dest.shape[0]}, gather_fill "
-        f"{c2['fill']!r}; prepare_shuffle_spmv {c2['prepare_s']!r} s "
+        f"{c2['fill']!r}; slot-order arrays {slot_bytes} bytes; "
+        f"prepare_shuffle_spmv {c2['prepare_s']!r} s "
         f"({time.perf_counter() - t0:.3f} s)")
     t0 = time.perf_counter()
     sh = phase_shuffle(torch, sp, dev, c2, heavy_n)
@@ -1419,6 +1459,47 @@ def torch_csr(torch, M, dev):
         check_invariants=True)
 
 
+def k6_pr3(prep, X):
+    """PR 3's K6 (``sps_tiled_dense_simt``: the SIMT body K5 keeps, one CTA
+    per SM, synchronous staging) on the same call as
+    ``spmm_tiled_dense``, X cast included: the timing yardstick of the
+    ring. Used nowhere in the port."""
+    import torch
+    from spsparse_torch import backend
+    from spsparse_torch.ops.tiled_spmm import check_blocks
+
+    Xk = X.to(prep.blocks.dtype).contiguous()
+    M = prep.shape[0]
+    K, N = Xk.shape
+    Y = torch.empty((M, N), dtype=torch.float32, device=X.device)
+    err = backend.load_kernels().sps_tiled_dense_simt(
+        check_blocks(prep.blocks, "PreparedTiledDense"),
+        prep.tcols.data_ptr(), prep.blocks.data_ptr(), -(-M // TILE_SIDE),
+        prep.tiles_per_row, prep.nbc, Xk.data_ptr(), K, N, Y.data_ptr(), M,
+        backend.current_stream(X.device))
+    backend.check(err, "sps_tiled_dense_simt")
+    return Y
+
+
+def k11_pr5(prep, x):
+    """PR 5's K11 (``sps_shuffle_gather_scatter``: each gather slot's
+    product stored straight to its ELL slot, from the column-block ordered
+    batches) on a float32 ``x``: the timing yardstick of the slot-order
+    pass. Used nowhere in the port."""
+    import torch
+    from spsparse_torch import backend
+
+    out = torch.empty(prep.n_slots, dtype=torch.float32, device=x.device)
+    err = backend.load_kernels().sps_shuffle_gather_scatter(
+        0 if prep.dest.dtype == torch.int32 else 1, prep.octet.data_ptr(),
+        prep.idx.data_ptr(), prep.vals.data_ptr(), prep.dest.data_ptr(),
+        prep.filler_dest.data_ptr(), prep.n_batches,
+        prep.filler_dest.shape[0], x.data_ptr(), prep.shape[1],
+        prep.n_slots, out.data_ptr(), backend.current_stream(x.device))
+    backend.check(err, "sps_shuffle_gather_scatter")
+    return out.reshape(prep.n_vrows, prep.ell_k)
+
+
 def library_csr_of(torch, rows, cols, vals, shape, dev):
     """:func:`torch_csr` of an entry list."""
     return torch_csr(torch, csr_host(rows, cols, vals, shape), dev)
@@ -1467,9 +1548,16 @@ def spmm_timings(torch, spmm, launches: dict) -> list[dict]:
     rows = []
 
     def add(name, dtype, matrix, prep, Xk, kernel, plain, item, rate, err,
-            lib, nnz, timing_kw=kw):
+            lib, nnz, timing_kw=kw, prior=None):
         ms, plain_ms = compare_times(torch, lambda: kernel(prep, Xk),
                                      lambda: plain(prep, Xk), **timing_kw)
+        extra = {}
+        if prior is not None:
+            check_pair(prior(prep, Xk), kernel(prep, Xk),
+                       f"{name} {dtype}: the earlier design", dtype == "bf16")
+            extra["ms_again"], extra["prior_design_ms"] = compare_times(
+                torch, lambda: kernel(prep, Xk), lambda: prior(prep, Xk),
+                **timing_kw)
         live, occupied = tile_counts(torch, prep)
         n_rhs = Xk.shape[1]
         x_bytes = occupied * TILE_SIDE * n_rhs * item
@@ -1496,7 +1584,7 @@ def spmm_timings(torch, spmm, launches: dict) -> list[dict]:
                          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                          library_ms=lib, matrix=matrix, n=prep.shape[0],
                          nnz=nnz, live_tiles=live,
-                         occupied_column_blocks=occupied))
+                         occupied_column_blocks=occupied, **extra))
 
     c3 = "config 3"
     add("spmm_tiled_window", "f32", c3 + " (prepare_general)",
@@ -1510,7 +1598,7 @@ def spmm_timings(torch, spmm, launches: dict) -> list[dict]:
                               ("bf16", 2, BF16_FLOPS_PER_S)):
         add("spmm_tiled_dense", dname, c3, dense[dname], X,
             spmm_tiled_dense, spmm_tiled_dense_reference, item, rate,
-            dense["err"][dname], lib_ms, nnz)
+            dense["err"][dname], lib_ms, nnz, prior=k6_pr3)
     add("spmm_tiled_onehot", "f32", c3, spmm["onehot"]["prep"], X,
         spmm_tiled_onehot, spmm_tiled_onehot_reference, 4, F32_FLOPS_PER_S,
         spmm["onehot"]["err"], lib_ms, nnz,
@@ -1677,13 +1765,19 @@ def unstructured_timings(torch, un, launches: dict) -> tuple[list, dict]:
     ms, plain_ms = compare_times(torch, lambda: shuffle_gather(prep, x),
                                  lambda: shuffle_gather_reference(prep, x),
                                  reps=7, inner=5)
-    gslots = prep.n_batches * 1024
-    isz = prep.dest.element_size()
-    nbytes = (4 * prep.n_batches + gslots * (8 + isz)
-              + prep.filler_dest.shape[0] * isz + 4 * n + 4 * prep.n_slots)
-    row("shuffle_gather", "config 2c (shuffle layout)", ms, plain_ms, nbytes,
-        gslots, 0.0, lib_ms, n=n, nnz=nnz, batches=prep.n_batches,
-        gather_fill=c2["fill"])
+    require(torch.equal(k11_pr5(prep, x), shuffle_gather(prep, x)),
+            "K11: the earlier design's slot grid differs")
+    ms_again, prior_ms = compare_times(torch, lambda: shuffle_gather(prep, x),
+                                       lambda: k11_pr5(prep, x), reps=7,
+                                       inner=5)
+    # The slot-order layout: each slot's column and value read once, each
+    # slot written once, x read once; one multiply a live slot.
+    nbytes = (prep.n_slots * (prep.ell_cols.element_size() + 4 + 4)
+              + 4 * n)
+    row("shuffle_gather", "config 2c (slot-order layout)", ms, plain_ms,
+        nbytes, nnz, 0.0, lib_ms, n=n, nnz=nnz, n_slots=prep.n_slots,
+        batches=prep.n_batches, gather_fill=c2["fill"], ms_again=ms_again,
+        prior_design_ms=prior_ms)
     keys, pay = un["sort"]["main"]
     nblk, R, _ = keys.shape
     nel = keys.numel()
@@ -1917,6 +2011,7 @@ def main() -> int:
             "nnz": row.get("nnz", nnz), "ms": row["ms"],
             "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "library_ms": row["library_ms"],
+            "prior_design_ms": row.get("prior_design_ms"),
             "roofline_share": row["bound_ms"] / row["ms"],
             "device": card, "nvidia_smi": smi}), flush=True)
     print(json.dumps({

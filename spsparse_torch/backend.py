@@ -59,6 +59,8 @@ _SIGNATURES = {
     "sps_dia_cg": [_I, _P, _LL, _LL, _I, _P, _F, _P, _P, _P, _P, _P, _P, _P,
                    _LL, _P, _P, _I, _P],
     "sps_tiled_dense": [_I, _P, _P, _I, _I, _I, _P, _LL, _I, _P, _LL, _P],
+    "sps_tiled_dense_simt": [_I, _P, _P, _I, _I, _I, _P, _LL, _I, _P, _LL,
+                             _P],
     "sps_tiled_window": [_I, _P, _P, _P, _I, _I, _I, _P, _LL, _I, _P, _LL,
                          _P],
     "sps_tiled_onehot": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _LL, _I, _P, _LL,
@@ -68,8 +70,9 @@ _SIGNATURES = {
     "sps_spgemm_window": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                           _I, _I, _P, _P],
     "sps_segsum": [_P, _P, _LL, _I, _P, _P],
-    "sps_shuffle_gather": [_I, _P, _P, _P, _P, _P, _LL, _LL, _P, _LL, _LL,
-                           _P, _P],
+    "sps_shuffle_gather": [_I, _P, _P, _P, _LL, _LL, _P, _P],
+    "sps_shuffle_gather_scatter": [_I, _P, _P, _P, _P, _P, _LL, _LL, _P, _LL,
+                                   _LL, _P, _P],
     "sps_block_sort": [_P, _P, _I, _I, _LL, _LL, _P],
 }
 

@@ -18,7 +18,8 @@ the JAX side is plain numpy (``np.asarray`` of a JAX array).
   field (the live counts become Python ints); they take the JAX objects
   and read each field with ``np.asarray``.
 * :func:`prepared_shuffle_from_jax` — the unstructured SpMV's shuffle
-  layout, field for field (the port's arrays are the JAX package's).
+  layout, field for field (the port's arrays are the JAX package's), plus
+  the slot-order arrays kernel K11 reads, rebuilt from the gather batches.
 * :func:`tiled_blocks_from_jax`, :func:`tiled_gemm_plan_from_jax`,
   :func:`window_gemm_plan_from_jax` and :func:`esc_plan_from_jax` — the
   SpGEMM blocks and plans, field for field (the tiled and window plans are
@@ -50,7 +51,7 @@ from .ops.general import PreparedGather, PreparedGatherEll, PreparedGeneral
 from .ops.spgemm_planned import EscPlan
 from .ops.spgemm_tiled import TiledBlocks, TiledGemmPlan
 from .ops.spgemm_window import WindowGemmPlan
-from .ops.spmv_shuffle import PreparedShuffleSpMV
+from .ops.spmv_shuffle import PreparedShuffleSpMV, slot_order_of_batches
 from .ops.tiled_spmm import PreparedTiledDense, PreparedTiledRows
 from .ops.tiled_window import PreparedTiledWindow
 
@@ -241,7 +242,12 @@ def esc_plan_from_jax(plan, *, device=None) -> EscPlan:
 def prepared_shuffle_from_jax(prep, *, device=None) -> PreparedShuffleSpMV:
     """The port's :class:`PreparedShuffleSpMV` holding a JAX
     ``PreparedShuffleSpMV``'s arrays."""
+    arrays = _fields(prep, ("octet", "idx", "vals", "dest", "filler_dest",
+                            "extra_rows", "extra_vrows"), device)
+    n_slots = int(prep.n_vrows) * int(prep.ell_k)
+    ell_cols, ell_vals = slot_order_of_batches(
+        arrays["octet"], arrays["idx"], arrays["vals"], arrays["dest"],
+        n_slots, _shape(prep)[1])
     return PreparedShuffleSpMV(
-        **_fields(prep, ("octet", "idx", "vals", "dest", "filler_dest",
-                         "extra_rows", "extra_vrows"), device),
+        **arrays, ell_cols=ell_cols, ell_vals=ell_vals,
         n_vrows=int(prep.n_vrows), ell_k=int(prep.ell_k), shape=_shape(prep))

@@ -9,19 +9,18 @@
 //     Y[b*128 + rows[b,t,e], :] += vals[b,t,e] * X[tc*128 + cols[b,t,e], :]
 //     over the entries of each live tile of block row b.
 //
-// K6: what bounds it, and the design. Each live block costs 2*128*128*N
-// operations against 64 KB (float32) or 32 KB (bfloat16) of block bytes, so
-// at N = 128 float32 blocks are bound by the card's float32 rate (the
-// tensor cores are not used: the JAX kernel's HIGHEST precision asks for
-// true float32, which TF32 is not) and bfloat16 blocks, on the tensor-core
-// rate, by memory. This first kernel runs both on the SIMT float32 units:
-// a register-blocked tile product (tiled_common.cuh) with no TPU DMA
-// machinery. The TPU kernel double-buffered per-tile X DMAs and skipped the
-// DMA of padding slots; here a padding slot reads neither block nor X, and
-// the X tiles that neighbouring block rows share come from the 50 MB L2.
-// The TPU kernel's 32 MiB VMEM guard is gone: a block row streams through
-// shared memory 16 columns of k at a time, at any number of slots. X is
-// bounds-checked, not padded to (nbc*128, Np).
+// K6: what bounds it, and the design: tiled_dense.cuh (a cp.async ring of
+// k-chunks, bfloat16 on mma.sync tensor cores, float32 on SIMT FMAs with an
+// 8 x 8 register tile a thread, two CTAs per SM). The TPU kernel
+// double-buffered per-tile X DMAs and skipped the DMA of padding slots;
+// here the ring streams the live (slot, k-chunk) sequence of a block row
+// and a padding slot reads neither block nor X; the X tiles that
+// neighbouring block rows share come from the 50 MB L2. The TPU kernel's
+// 32 MiB VMEM guard is gone: a block row streams through shared memory a
+// k-chunk at a time, at any number of slots. X is bounds-checked, not
+// padded to (nbc*128, Np). sps_tiled_dense_simt is PR 3's K6 (the SIMT body
+// of tiled_common.cuh, which K5 keeps), kept as the timing yardstick of the
+// ring: chip_smoke.py times both in one run, nothing in the port calls it.
 //
 // K7: what bounds it, and the design. The TPU kernel built one-hot
 // matrices in VMEM and used the matrix unit to gather and scatter; here no
@@ -40,6 +39,7 @@
 // first form, by the latency of the X reads (four in flight per thread).
 
 #include "tiled_common.cuh"
+#include "tiled_dense.cuh"
 
 namespace {
 
@@ -154,6 +154,21 @@ extern "C" {
 int sps_tiled_dense(int dtype, const void* tcols, const void* blocks,
                     int nbr, int rt, int nbc, const void* X, long long K,
                     int N, void* Y, long long M, void* stream) {
+  const sps_tiled::DenseCols cols{static_cast<const int*>(tcols), rt, nbc};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return sps_dense::launch_dense_ring<float>(blocks, cols, nbr, rt, X, K,
+                                               N, Y, M, s);
+  if (dtype == 1)
+    return sps_dense::launch_dense_ring<__nv_bfloat16>(blocks, cols, nbr, rt,
+                                                       X, K, N, Y, M, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// PR 3's K6 (timing yardstick), the same arguments as sps_tiled_dense.
+int sps_tiled_dense_simt(int dtype, const void* tcols, const void* blocks,
+                         int nbr, int rt, int nbc, const void* X, long long K,
+                         int N, void* Y, long long M, void* stream) {
   const sps_tiled::DenseCols cols{static_cast<const int*>(tcols), rt, nbc};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)

@@ -6,7 +6,8 @@ Counterpart of :mod:`spsparse_tpu.ops.spmv_kernels`:
   promoted from the operands (the JAX package's XLA lowering).
 * :func:`spmv_ell` — gather + row reduce over the ELL layout.
 * :func:`best_spmv` — routes each operand format to its fastest path:
-  :class:`SparseDIA` / :class:`PreparedDIA` go to kernel K1
+  a float64 :class:`SparseDIA` to :func:`spmv_dia` (K1 never took
+  float64); other :class:`SparseDIA` / :class:`PreparedDIA` to kernel K1
   (:func:`spmv_dia_stream`), which launches the CUDA kernel for CUDA
   tensors and runs its plain version for CPU tensors; a
   :class:`PreparedShuffleSpMV` goes to kernel K11 (:func:`spmv_shuffle`).
@@ -61,10 +62,15 @@ def spmv_ell(ell: SparseELL, x: Tensor) -> Tensor:
 
 
 def best_spmv(a, x: Tensor) -> Tensor:
-    """Format-dispatched SpMV. DIA operands go to kernel K1 (float32
-    result); a :class:`PreparedShuffleSpMV` to :func:`spmv_shuffle` (K11,
-    float32); a :class:`PreparedGeneral` to :func:`spmv_general`; ELL to
-    :func:`spmv_ell`; CSR/COO to the generic CSR path."""
+    """Format-dispatched SpMV. A float64 :class:`SparseDIA` goes to
+    :func:`spmv_dia` (float64 result, the JAX package's route for it off
+    the TPU: K1 takes float32 and bfloat16 diagonals only); other DIA
+    operands to kernel K1 (float32 result); a :class:`PreparedShuffleSpMV`
+    to :func:`spmv_shuffle` (K11, float32); a :class:`PreparedGeneral` to
+    :func:`spmv_general`; ELL to :func:`spmv_ell`; CSR/COO to the generic
+    CSR path."""
+    if isinstance(a, SparseDIA) and a.data.dtype == torch.float64:
+        return spmv_dia(a, x)
     if isinstance(a, (SparseDIA, PreparedDIA)):
         return spmv_dia_stream(a, x)
     if isinstance(a, PreparedShuffleSpMV):

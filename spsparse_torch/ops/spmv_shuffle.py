@@ -9,14 +9,16 @@ most ``ell_k`` entries), the unoccupied ELL slots as fillers, and distinct
 above-range sentinels on padding gather slots.
 
 The TPU has no fast gather: it gathers x inside 8-row slabs, then sorts
-``(dest, p)`` to bring the products into ELL order. On CUDA tensors
-:func:`shuffle_gather` launches ``sps_shuffle_gather``
-(``spsparse_torch/csrc/spmv_shuffle.cu``), which gathers each product and
-stores it straight to its ELL slot, and writes the fillers' zeros: the
-sort is fused away, and the slot grid is bit for bit the sort's, because
-``dest`` is unique and each product is one multiply. On CPU tensors it
-runs the plain version :func:`shuffle_gather_reference`, the JAX
-algorithm (gather products, a sort by ``dest``, the first ``n_slots``).
+``(dest, p)`` to bring the products into ELL order. Hopper has one, so the
+prepare also keeps the layout in slot order (``ell_cols``, ``ell_vals``:
+each ELL slot's global column, -1 on fillers, and its value). On CUDA
+tensors :func:`shuffle_gather` launches ``sps_shuffle_gather``
+(``spsparse_torch/csrc/spmv_shuffle.cu``), one coalesced pass in slot
+order that gathers x and writes each slot once: the sort is gone, and the
+slot grid is bit for bit the sort's, because ``dest`` is unique and each
+product is one multiply. On CPU tensors it runs the plain version
+:func:`shuffle_gather_reference`, the JAX algorithm over the gather
+batches (gather products, a sort by ``dest``, the first ``n_slots``).
 :func:`spmv_shuffle` then sums the ELL rows and adds the split rows'
 partial sums with ``index_add_`` (XLA code in the JAX package, plain
 PyTorch here).
@@ -40,7 +42,7 @@ from ..core.errors import spsparse_error
 
 __all__ = ["PreparedShuffleSpMV", "prepare_shuffle_spmv", "spmv_shuffle",
            "spmv_shuffle_reference", "shuffle_gather",
-           "shuffle_gather_reference"]
+           "shuffle_gather_reference", "slot_order_of_batches"]
 
 Tensor = torch.Tensor
 
@@ -59,7 +61,10 @@ class PreparedShuffleSpMV:
     (F,)`` the unoccupied ELL slots; ``dest`` and ``filler_dest`` are int32
     unless the ids reach 2^31 (then int64); ``extra_rows (E,)`` int32
     real-row targets of the split virtual rows, ``extra_vrows`` their
-    virtual indices."""
+    virtual indices. The same entries in slot order, the layout kernel K11
+    reads: ``ell_cols (n_slots,)`` each slot's global column (-1 on a
+    filler; int32, or int64 when ``ncols`` reaches 2^31) and ``ell_vals
+    (n_slots,)`` float32 (0 on a filler)."""
 
     octet: Tensor
     idx: Tensor
@@ -68,6 +73,8 @@ class PreparedShuffleSpMV:
     filler_dest: Tensor
     extra_rows: Tensor
     extra_vrows: Tensor
+    ell_cols: Tensor
+    ell_vals: Tensor
     n_vrows: int
     ell_k: int
     shape: tuple
@@ -87,6 +94,34 @@ class PreparedShuffleSpMV:
 
 def _exclusive_cumsum(t: Tensor) -> Tensor:
     return torch.cumsum(t, 0) - t
+
+
+def _slot_order(dest_slot: Tensor, cols: Tensor, vals: Tensor, n_slots: int,
+               ncols: int) -> tuple[Tensor, Tensor]:
+    """``(ell_cols, ell_vals)``: two scatters of the entries' global columns
+    and values by their ELL slot ``dest_slot``; fillers keep -1 and 0."""
+    dt = torch.int64 if ncols >= 2 ** 31 else torch.int32
+    dev = vals.device
+    ell_cols = torch.full((n_slots,), -1, dtype=dt, device=dev)
+    ell_cols[dest_slot] = cols.to(dt)
+    ell_vals = torch.zeros(n_slots, dtype=torch.float32, device=dev)
+    ell_vals[dest_slot] = vals.to(torch.float32)
+    return ell_cols, ell_vals
+
+
+def slot_order_of_batches(octet: Tensor, idx: Tensor, vals: Tensor,
+                          dest: Tensor, n_slots: int, ncols: int
+                          ) -> tuple[Tensor, Tensor]:
+    """:func:`_slot_order` read back from the gather batches (``dest`` with
+    its sentinels on padding slots): the slot-order arrays of a layout built
+    elsewhere, such as the JAX package's."""
+    col = ((octet.long()[:, None, None] * _SUBL
+            + torch.arange(_SUBL, device=idx.device)[None, :, None]) * _LANES
+           + idx.long()).reshape(-1)
+    d = dest.long().reshape(-1)
+    live = d < n_slots
+    return _slot_order(d[live], col[live], vals.reshape(-1)[live], n_slots,
+                      ncols)
 
 
 def prepare_shuffle_spmv(a: SparseCOO, *, ell_k: int = 16
@@ -157,6 +192,8 @@ def prepare_shuffle_spmv(a: SparseCOO, *, ell_k: int = 16
     occ[dest_slot] = True
     filler = torch.nonzero(~occ).reshape(-1)
 
+    ell_cols, ell_vals = _slot_order(dest_slot, cols, vals, n_slots, ncols)
+
     # padding gather slots get distinct above-range sentinels, as in the
     # JAX package (there the sort needs a globally unique key)
     dest = dest.reshape(-1)
@@ -167,7 +204,8 @@ def prepare_shuffle_spmv(a: SparseCOO, *, ell_k: int = 16
     return PreparedShuffleSpMV(
         octet=octet, idx=idx, vals=v8, dest=dest.to(dt),
         filler_dest=filler.to(dt), extra_rows=extra_rows.to(torch.int32),
-        extra_vrows=extra_vrows.to(torch.int32), n_vrows=int(n_vrows),
+        extra_vrows=extra_vrows.to(torch.int32), ell_cols=ell_cols,
+        ell_vals=ell_vals, n_vrows=int(n_vrows),
         ell_k=int(ell_k), shape=(nrows, ncols))
 
 
@@ -206,35 +244,28 @@ def shuffle_gather(prep: PreparedShuffleSpMV, x: Tensor) -> Tensor:
     slot ``dest[t]`` holds gather slot ``t``'s product, every other slot
     0.
 
-    CUDA tensors launch kernel K11 (``shuffle_gather.launches`` counts the
-    launches); CPU tensors take :func:`shuffle_gather_reference`."""
+    CUDA tensors launch kernel K11 over ``ell_cols``/``ell_vals``
+    (``shuffle_gather.launches`` counts the launches); CPU tensors take
+    :func:`shuffle_gather_reference`."""
     x = _check(prep, x)
     if x.device.type == "cpu":
         return shuffle_gather_reference(prep, x)
-    dest64 = {torch.int32: 0, torch.int64: 1}.get(prep.dest.dtype)
-    if dest64 is None:
-        raise TypeError("PreparedShuffleSpMV.dest must be int32 or int64")
-    for name, dtype in (("octet", torch.int32), ("idx", torch.int32),
-                        ("vals", torch.float32), ("dest", prep.dest.dtype),
-                        ("filler_dest", prep.dest.dtype)):
-        t = getattr(prep, name)
-        if t.dtype != dtype or not t.is_contiguous():
-            raise ValueError(f"PreparedShuffleSpMV.{name} must be "
-                             f"contiguous {dtype}")
-    B = prep.n_batches
-    if (tuple(prep.idx.shape) != (B, _SUBL, _LANES)
-            or tuple(prep.vals.shape) != (B, _SUBL, _LANES)
-            or prep.dest.shape[0] != B * _SUBL * _LANES
-            or prep.octet.shape[0] != B):
-        raise ValueError("PreparedShuffleSpMV arrays disagree in shape")
+    cols64 = {torch.int32: 0, torch.int64: 1}.get(prep.ell_cols.dtype)
+    if cols64 is None:
+        raise TypeError("PreparedShuffleSpMV.ell_cols must be int32 or int64")
+    for name, t in (("ell_cols", prep.ell_cols), ("ell_vals", prep.ell_vals)):
+        if (tuple(t.shape) != (prep.n_slots,) or not t.is_contiguous()
+                or t.data_ptr() % 16):
+            raise ValueError(f"PreparedShuffleSpMV.{name} must be a "
+                             f"contiguous, 16-byte aligned ({prep.n_slots},)")
+    if prep.ell_vals.dtype != torch.float32:
+        raise ValueError("PreparedShuffleSpMV.ell_vals must be float32")
     out = torch.empty(prep.n_slots, dtype=torch.float32, device=x.device)
     lib = backend.load_kernels()
     err = lib.sps_shuffle_gather(
-        dest64, prep.octet.data_ptr(), prep.idx.data_ptr(),
-        prep.vals.data_ptr(), prep.dest.data_ptr(),
-        prep.filler_dest.data_ptr(), B,
-        prep.filler_dest.shape[0], x.data_ptr(), prep.shape[1],
-        prep.n_slots, out.data_ptr(), backend.current_stream(x.device))
+        cols64, prep.ell_cols.data_ptr(), prep.ell_vals.data_ptr(),
+        x.data_ptr(), prep.shape[1], prep.n_slots, out.data_ptr(),
+        backend.current_stream(x.device))
     backend.check(err, "sps_shuffle_gather")
     shuffle_gather.launches += 1
     return out.reshape(prep.n_vrows, prep.ell_k)

@@ -18,7 +18,9 @@ by block row:
 
 Both give a float32 ``(shape[0], N)`` result. On CUDA tensors the wrappers
 launch the Hopper kernels ``sps_tiled_onehot`` and ``sps_tiled_dense``
-(``spsparse_torch/csrc/tiled.cu``); on CPU tensors they run the plain
+(``spsparse_torch/csrc/tiled.cu``; K6's body, a ``cp.async`` ring with
+bfloat16 on ``mma.sync`` tensor cores, is ``csrc/tiled_dense.cuh``); on
+CPU tensors they run the plain
 versions :func:`spmm_tiled_onehot_reference` and
 :func:`spmm_tiled_dense_reference`, which are blocked over block rows so
 that no intermediate exceeds about 128 MB. K6 casts ``X`` to the blocks'
@@ -424,6 +426,8 @@ def _dense(prep: PreparedTiledDense, X: Tensor) -> Tensor:
     code = check_blocks(prep.blocks, "PreparedTiledDense")
     if prep.tcols.dtype != torch.int32 or not prep.tcols.is_contiguous():
         raise ValueError("PreparedTiledDense.tcols must be contiguous int32")
+    if prep.blocks.data_ptr() % 16:
+        raise ValueError("PreparedTiledDense.blocks must be 16-byte aligned")
     lib = backend.load_kernels()
     err = lib.sps_tiled_dense(
         code, prep.tcols.data_ptr(), prep.blocks.data_ptr(), -(-M // TILE),

@@ -670,6 +670,37 @@ def test_linear_operator_over_dia_runs_k1_plain():
             tensor_to_numpy(td.to_dense()) @ X, rtol=2e-5, atol=2e-5)
 
 
+def test_best_spmv_float64_dia_matches_jax_and_cg_solves():
+    """A float64 ``SparseDIA`` goes to the plain float64 DIA product (the
+    JAX package's route off the TPU; K1 takes float32 and bfloat16), so
+    ``best_spmv`` keeps float64 and the CG solve over its operator reaches
+    a float64 residual."""
+    from spsparse_torch.ops import best_spmv as t_best
+    from spsparse_tpu.ops.spmv_kernels import best_spmv as j_best
+
+    rng = np.random.default_rng(43)
+    n = 200
+    off = rng.uniform(-1, 1, n - 1)
+    A = np.diag(4 + rng.uniform(0, 1, n)) + np.diag(off, 1) + np.diag(off, -1)
+    offs = (-1, 0, 1)
+    data = np.zeros((3, n))
+    data[0, 1:], data[1], data[2, :-1] = off, np.diag(A), off
+    jd, td = both(data, offs, n)
+    x = rng.uniform(-1, 1, n)
+    y = t_best(td, torch.from_numpy(x))
+    assert y.dtype == torch.float64
+    close(y, j_best(jd, jnp.asarray(x)), rtol=1e-12, atol=0)
+    np.testing.assert_allclose(tensor_to_numpy(y), A @ x, rtol=1e-12)
+    b = rng.uniform(-1, 1, n)
+    xt, _ = ts.cg_solve(ts.aslinearoperator(td).matvec, t64(b), iters=100)
+    xj, _ = js.cg_solve(js.aslinearoperator(jd).matvec, jnp.asarray(b),
+                        iters=100)
+    res_t = np.abs(A @ tensor_to_numpy(xt) - b).max()
+    res_j = np.abs(A @ np.asarray(xj) - b).max()
+    assert res_t <= 1e-12 and res_j <= 1e-12
+    close(xt, xj)
+
+
 # ----------------------------------------------------------------------
 # The whole slice at small size
 # ----------------------------------------------------------------------

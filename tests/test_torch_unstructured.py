@@ -8,7 +8,10 @@ and K11 (``shuffle_gather``) run their plain versions:
 ``prepare_shuffle_spmv`` (every array), ``spmv_shuffle`` on each package's
 own layout and on the other's (through ``convert``), ``best_spmv``'s
 route, ``segmented_row_sums``/``spmv_csr_segsum`` and their helpers, and
-``chip_smoke.unstructured_path`` rehearsed on the CPU.
+``chip_smoke.unstructured_path`` rehearsed on the CPU. The slot-order
+arrays that kernel K11 reads (``ell_cols``, ``ell_vals``) are held against
+the same arrays built in numpy from the JAX layout's gather batches, and
+K11's formula over them against the JAX sort pipeline bit for bit.
 
 Tolerances: layout arrays exact, except a duplicate entry's summed value,
 which may differ by one ulp (the JAX prepare sums with ``np.add.at``, the
@@ -182,6 +185,72 @@ def test_slot_grid_is_the_sort_of_the_gather_products():
     want[dest[live]] = (tn(tp.vals).reshape(-1) * xpad[col])[live]
     np.testing.assert_array_equal(slots, want)
     assert not slots[tn(tp.filler_dest)].any()
+
+
+def slot_order_from_jax(pj):
+    """``(ell_cols, ell_vals)`` in numpy from the JAX layout: slot
+    ``dest[t]`` of gather slot ``t`` (batch b, sublane s, lane l) gets
+    column ``(8*octet[b] + s)*128 + idx`` and value ``vals``; fillers -1
+    and 0."""
+    dest = np.asarray(pj.dest).reshape(-1)
+    col = ((np.asarray(pj.octet, np.int64)[:, None, None] * 8
+            + np.arange(8)[None, :, None]) * 128
+           + np.asarray(pj.idx)).reshape(-1)
+    vals = np.asarray(pj.vals).reshape(-1)
+    live = dest < pj.n_slots
+    cols = np.full(pj.n_slots, -1, np.int64)
+    out = np.zeros(pj.n_slots, np.float32)
+    cols[dest[live]] = col[live]
+    out[dest[live]] = vals[live]
+    return cols, out
+
+
+@functools.lru_cache(maxsize=None)
+def slot_case(name):
+    """``(JAX layout, port layout, x holding an inf)``: a 2^12-row random
+    matrix (10 entries a row) or the heavy-row case."""
+    if name == "heavy_rows":
+        pj, tp, x, *_ = case(name)
+        x = x.copy()
+    else:
+        rng = np.random.default_rng(12)
+        shape = (1 << 12, 1 << 12)
+        ja, ta = build_both(shape, *_random(rng, shape, 10))
+        pj, tp = j_prepare(ja), t_prepare(ta)
+        x = rng.uniform(-1, 1, shape[1]).astype(np.float32)
+    x[tn(tp.ell_cols)[tn(tp.ell_cols) >= 0][::7][:3]] = np.inf
+    return pj, tp, x
+
+
+@pytest.mark.parametrize("name", ["random_4096", "heavy_rows"])
+def test_slot_order_matches_jax_layout(name):
+    pj, tp, _ = slot_case(name)
+    cols, vals = slot_order_from_jax(pj)
+    assert tp.ell_cols.dtype == torch.int32 and tp.ell_vals.dtype == \
+        torch.float32
+    np.testing.assert_array_equal(tn(tp.ell_cols), cols)
+    np.testing.assert_array_max_ulp(tn(tp.ell_vals), vals, maxulp=1)
+    conv = cv.prepared_shuffle_from_jax(pj, device="cpu")
+    np.testing.assert_array_equal(tn(conv.ell_cols), cols)
+    np.testing.assert_array_equal(tn(conv.ell_vals), vals)
+    assert tp.n_slots == pj.n_slots == cols.size
+    assert (cols >= 0).sum() + np.asarray(pj.filler_dest).size == cols.size
+
+
+@pytest.mark.parametrize("name", ["random_4096", "heavy_rows"])
+def test_slot_order_products_are_the_sort_pipeline(name):
+    """K11's formula (a filler writes 0 and never computes 0 * x) over the
+    slot-order arrays equals the plain sort pipeline bit for bit, with an
+    inf in x."""
+    _, tp, x = slot_case(name)
+    xt = torch.from_numpy(x)
+    want = tn(t_k11(tp, xt)).reshape(-1)
+    cols, vals = tn(tp.ell_cols), tn(tp.ell_vals)
+    got = np.where(cols >= 0, vals * x[np.maximum(cols, 0)],
+                   np.float32(0)).astype(np.float32)
+    assert np.isinf(want).any() and not np.isnan(want).any()
+    np.testing.assert_array_equal(got, want)
+    assert not got[cols < 0].any()
 
 
 def test_best_spmv_routes_the_shuffle_layout():

@@ -11,8 +11,8 @@ phase 14, and bench config 4's matrix (2**17 rows) with its band plan and
 pair plans (A A^T, and C C for C = A A^T), and bench config 2c (2**20 rows,
 10 uniform-random columns a row) with its shuffle layout and CSR products
 and the (1024, 64, 128) block sort, as ``chip_smoke.py`` does; runs each
-wrapper (and the
-library calls that ``chip_smoke.py`` uses as yardsticks) 10 times under
+wrapper (and the library calls and earlier kernel designs, PR 3's K6 and
+PR 5's K11, that ``chip_smoke.py`` uses as yardsticks) 10 times under
 ``torch.profiler``, and prints one JSON line per workload: the CUDA kernels
 it ran, their count and device time, and the device time per call. Needs
 one CUDA card.
@@ -142,6 +142,8 @@ def main() -> int:
         "K5 bf16, config 3 (group 32)": lambda: spmm_tiled_window(w16, X3),
         "K6 f32, config 3": lambda: spmm_tiled_dense(d32, X3),
         "K6 bf16, config 3": lambda: spmm_tiled_dense(d16, X3),
+        "K6 f32, config 3, PR 3's SIMT body": lambda: cs.k6_pr3(d32, X3),
+        "K6 bf16, config 3, PR 3's SIMT body": lambda: cs.k6_pr3(d16, X3),
         "K7 f32, config 3": lambda: spmm_tiled_onehot(rows, X3),
         "library A3_csr @ X, config 3": lambda: A3_csr @ X3,
         "K7 f32, one_hot route": lambda: spmm_tiled_onehot(pg.prep, Xo),
@@ -164,8 +166,9 @@ def main() -> int:
         "K10 f32, config 2c CSR products": lambda: segmented_row_sums(
             prod2, csr2.row_ptr, nrows=n, rows_per_block=256,
             entries_per_block=1024),
-        "K11 f32, config 2c shuffle layout": lambda: shuffle_gather(shuf,
-                                                                    x2),
+        "K11 f32, config 2c slot-order layout": lambda: shuffle_gather(
+            shuf, x2),
+        "K11 f32, config 2c, PR 5's scatter": lambda: cs.k11_pr5(shuf, x2),
         "spmv_shuffle, config 2c": lambda: spmv_shuffle(shuf, x2),
         "library A2_csr @ x, config 2c": lambda: A2_csr @ x2,
         "K12 (1024, 64, 128) key + payload": lambda: sort_blocks((keys,

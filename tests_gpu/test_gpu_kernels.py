@@ -17,7 +17,8 @@ rtol/atol 1e-5 (another sum order); K11's slot grid bit for bit (one
 multiply a slot, the same slots as the plain sort pipeline), its SpMV
 rtol 1e-5 against the plain version and float64; K12 keys exact, payloads
 exact when the sort is stable and otherwise as a multiset within each run
-of equal keys (a bitonic network is not stable).
+of equal keys (a bitonic network is not stable). A float64 DIA operand's
+``best_spmv`` (plain PyTorch) within 1e-12 of float64 numpy.
 """
 
 import numpy as np
@@ -85,6 +86,21 @@ def test_k1_rectangular_matches_plain():
     torch.testing.assert_close(spmv_dia_stream(prep, x),
                                spmv_dia_stream_reference(prep, x),
                                rtol=1e-5, atol=1e-5)
+
+
+def test_best_spmv_float64_dia_stays_float64():
+    dev = _cuda()
+    rng = np.random.default_rng(5)
+    n = 5000
+    data, offs = banded(rng, n, [-2, 0, 1])
+    dia = dia_from_numpy(data.astype(np.float64), offs, (n, n), device=dev)
+    x = rng.uniform(-1, 1, n)
+    before = spmv_dia_stream.launches
+    y = best_spmv(dia, torch.from_numpy(x).to(dev))
+    assert y.dtype == torch.float64 and spmv_dia_stream.launches == before
+    want = dia.to_dense().cpu().numpy() @ x
+    np.testing.assert_allclose(y.cpu().numpy(), want, rtol=1e-12,
+                               atol=1e-12)
 
 
 def test_cuda_tensor_never_reaches_plain_version(monkeypatch):
@@ -269,6 +285,43 @@ def test_k6_matches_plain(dtype, m, k, N, empty):
     assert Y.shape == (m, N) and Y.dtype == torch.float32
     ref = spmm_tiled_dense_reference(prep, X)
     torch.testing.assert_close(Y, ref, **_scaled(_tol(dtype), ref))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("N", [1, 32, 33, 128, 200])
+def test_k6_ring_edges(dtype, N):
+    """Ragged M and K, padding slots, an all-padding block row, a NaN-filled
+    Y allocation; padding slots' blocks (NaN) are never read."""
+    from spsparse_torch.ops import (PreparedTiledDense, spmm_tiled_dense,
+                                    spmm_tiled_dense_reference)
+
+    dev = _cuda()
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(N)
+    M, K = 3 * 128 + 50, 5 * 128 - 37            # nbr 4, nbc 5
+    nbc = 5
+    tcols = torch.tensor([[0, 4, nbc], [nbc, nbc, nbc], [2, nbc, 1],
+                          [4, 3, 0]], dtype=torch.int32, device=dev)
+    blocks = torch.from_numpy(rng.uniform(-1, 1, (4, 3, 128, 128)).astype(
+        np.float32)).to(dev)
+    pad = (tcols == nbc)[:, :, None, None]
+    blocks = torch.where(pad, 0.0, blocks).to(dt)
+    prep = PreparedTiledDense(tcols=tcols, blocks=blocks, shape=(M, K))
+    X = torch.from_numpy(rng.uniform(-1, 1, (K, N)).astype(np.float32)).to(
+        dev)
+    dirty_cache(dev, M * N * 4)
+    before = spmm_tiled_dense.launches
+    Y = spmm_tiled_dense(prep, X)
+    torch.cuda.synchronize()
+    assert spmm_tiled_dense.launches == before + 1
+    assert Y.shape == (M, N) and not bool(torch.isnan(Y).any())
+    assert not bool(Y[128:256].any())            # the all-padding block row
+    ref = spmm_tiled_dense_reference(prep, X)
+    torch.testing.assert_close(Y, ref, **_scaled(_tol(dtype), ref))
+    nan_pad = PreparedTiledDense(
+        tcols=tcols, blocks=torch.where(pad, float("nan"), blocks.float())
+        .to(dt), shape=(M, K))
+    assert torch.equal(spmm_tiled_dense(nan_pad, X), Y)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -585,6 +638,7 @@ def test_k11_slot_grid_bitwise_and_spmv(kind):
 
 
 def test_k11_int64_dest():
+    """int64 slot columns (the layout of ncols >= 2^31) and int64 dest."""
     import dataclasses
 
     from spsparse_torch.ops import shuffle_gather, shuffle_gather_reference
@@ -592,10 +646,40 @@ def test_k11_int64_dest():
     dev = _cuda()
     prep, x, _ = shuffle_case(dev, "uniform")
     wide = dataclasses.replace(prep, dest=prep.dest.long(),
-                               filler_dest=prep.filler_dest.long())
+                               filler_dest=prep.filler_dest.long(),
+                               ell_cols=prep.ell_cols.long())
     dirty_cache(dev, prep.n_slots * 4)
     assert torch.equal(shuffle_gather(wide, x),
                        shuffle_gather_reference(prep, x))
+
+
+@pytest.mark.parametrize("ell_k", [5, 16])
+def test_k11_inf_in_x_and_tail(ell_k):
+    """An inf in x reaches the slots of its column and no filler; ell_k 5
+    over an odd number of virtual rows leaves a tail of n_slots % 4."""
+    import spsparse_torch as sp
+    from spsparse_torch.ops import (prepare_shuffle_spmv, shuffle_gather,
+                                    shuffle_gather_reference)
+
+    dev = _cuda()
+    rng = np.random.default_rng(55)
+    r = np.repeat(np.arange(1001), 3)
+    c = rng.integers(0, 700, r.size)
+    b = sp.CooBuilder((1001, 700), dtype=np.float32)
+    b.add_many(np.stack([r, c], 1), rng.uniform(0.5, 1, r.size))
+    prep = prepare_shuffle_spmv(b.build(device=dev), ell_k=ell_k)
+    if ell_k == 5:
+        assert prep.n_slots % 4 != 0
+    x = rng.uniform(-1, 1, 700).astype(np.float32)
+    x[c[:50]] = np.inf
+    x = torch.from_numpy(x).to(dev)
+    dirty_cache(dev, prep.n_slots * 4)
+    slots = shuffle_gather(prep, x)
+    torch.cuda.synchronize()
+    assert not bool(torch.isnan(slots).any())
+    assert bool(torch.isinf(slots).any())
+    assert torch.equal(slots, shuffle_gather_reference(prep, x))
+    assert not bool(slots.reshape(-1)[prep.ell_cols < 0].any())
 
 
 @pytest.mark.parametrize("case", ["random", "tail_empty_rows", "skewed"])
@@ -707,7 +791,39 @@ def test_k12_rejects_bad_blocks():
         sort_blocks((torch.zeros((1, 7, 128), dtype=torch.int32,
                                  device=dev),))
     with pytest.raises(TypeError):
-        sort_blocks((torch.zeros((1, 8, 128), device=dev),))
+        sort_blocks((torch.zeros((1, 8, 128), dtype=torch.float64,
+                                 device=dev),))
+    with pytest.raises(ValueError):
+        sort_blocks((torch.full((1, 8, 128), float("nan"), device=dev),))
+
+
+@pytest.mark.parametrize("num_keys,n_arrays", [(1, 2), (2, 10), (1, 12)])
+def test_k12_float_keys_and_many_arrays(num_keys, n_arrays):
+    """float32 keys (ties, both zeros, infinities, subnormals) through the
+    order-preserving int32 map, and more arrays than the kernel takes
+    (keys with a position payload through K12, then a gather)."""
+    import chip_smoke
+    from spsparse_torch.ops import sort_blocks, sort_blocks_reference
+
+    dev = _cuda()
+    rng = np.random.default_rng(90 + n_arrays)
+    shape = (6, 16, 128)
+    keys = [torch.from_numpy(chip_smoke.float_keys(rng, shape)).to(dev)]
+    if num_keys == 2:
+        keys.insert(0, torch.from_numpy(rng.integers(0, 5, shape).astype(
+            np.int32)).to(dev))
+    pays = [torch.from_numpy(rng.uniform(-1, 1, shape).astype(np.float32))
+            .to(dev) for _ in range(n_arrays - num_keys)]
+    arrays = tuple(keys + pays)
+    before = sort_blocks.launches
+    got = sort_blocks(arrays, num_keys=num_keys)
+    torch.cuda.synchronize()
+    assert sort_blocks.launches == before + 1
+    ref = sort_blocks_reference(arrays, num_keys=num_keys)
+    for g, r in zip(got[:num_keys], ref[:num_keys]):
+        assert torch.equal(g, r)
+    for g, r in zip(canon_blocks(got), canon_blocks(ref)):
+        assert torch.equal(g, r)
 
 
 def test_unstructured_cuda_tensors_never_reach_plain_versions(monkeypatch):
