@@ -77,7 +77,8 @@ operand:
     (config 4's pair plan), ``C = A A^T``, ``best_spgemm(C, C)`` and
     ``coo_matrix_power(C, 3)`` (the routes of each product logged) against
     scipy; K9 and K13 on both pair plans, in float32 and bfloat16, against
-    the plain version and each other.
+    the plain version and each other; float32 K13 must equal K9 bit for
+    bit, and two K13 calls must agree bit for bit.
 19. ESC: ``spgemm_aat`` and ``plan_esc`` (device and host) +
     ``spgemm_planned`` against scipy.
 20. Hand-off: the band's ``TiledBlocks.to_prepared_dense()`` through K6
@@ -113,9 +114,11 @@ columns a row, values uniform(-1, 1), x uniform(-1, 1), all from
     end to end, the ESC ``spgemm_aat`` and the planned apply. K10 and K11
     at config 2c against cuSPARSE's CSR SpMV, with ``spmv_shuffle`` and
     ``spmv_csr_segsum`` end to end in nnz/s; K12 against ``torch.sort``
-    carrying the payload through ``gather``. K6 and K11 are also timed
-    against their earlier designs (PR 3's SIMT K6, PR 5's scatter K11),
-    kept in the kernel library as yardsticks and called only here.
+    carrying the payload through ``gather``. K5, K6 and K11 are also timed
+    against their earlier designs (the SIMT body they first ran, on K5's
+    live tiles through ``to_tiled_dense``; K11's scatter design), kept in
+    the kernel library as yardsticks and called only here, and K13 against
+    K9 in turns.
 
 The launch counters of the kernel wrappers are reset before each path and
 read after it; a kernel of the path launched no time there fails the run.
@@ -1009,7 +1012,8 @@ def phase_band(torch, sp, dev, cfg):
 def phase_pairs(torch, sp, dev, cfg, k8):
     """Phase 18: K9 through spgemm_tiled (config 4's pair plan),
     best_spgemm(C, C) and coo_matrix_power(C, 3) against scipy; K9 and K13
-    on both pair plans against the plain version and each other."""
+    on both pair plans, in both types, against the plain version and each
+    other (float32 K13 equal to K9 bit for bit)."""
     from spsparse_torch.ops import (best_spgemm, coo_matrix_power,
                                     densify_tiled, plan_tiled_spgemm,
                                     spgemm_tiled, spgemm_tiled_pairs,
@@ -1038,15 +1042,17 @@ def phase_pairs(torch, sp, dev, cfg, k8):
     err["c3"] = check_coo(C3, C64 @ CC_ref, "coo_matrix_power(C, 3)", 1e-5,
                           1e-5)
 
-    tc = densify_tiled(sp.to_tiled(C))
+    tc = {"f32": densify_tiled(sp.to_tiled(C)),
+          "bf16": densify_tiled(sp.to_tiled(C), dtype=torch.bfloat16)}
     ta = {"f32": densify_tiled(cfg["tl"]),
           "bf16": densify_tiled(cfg["tl"], dtype=torch.bfloat16)}
     plans = {"A A^T": plan_tiled_spgemm(ta["f32"], ta["f32"],
                                         transpose_b=True),
-             "C C": plan_tiled_spgemm(tc, tc)}
+             "C C": plan_tiled_spgemm(tc["f32"], tc["f32"])}
     runs = [("A A^T", "f32", ta["f32"], cfg["AAT"]),
             ("A A^T", "bf16", ta["bf16"], None),
-            ("C C", "f32", tc, CC_ref)]
+            ("C C", "f32", tc["f32"], CC_ref),
+            ("C C", "bf16", tc["bf16"], None)]
     out = {"err": err, "routes": {"A A^T": routes, "C C": cc_routes,
                                   "C^3": power_routes},
            "plans": plans, "blocks": {}, "bitwise_k9_k13": {}}
@@ -1069,6 +1075,11 @@ def phase_pairs(torch, sp, dev, cfg, k8):
         err[f"{label} {dname}"] = e
         out["bitwise_k9_k13"][what] = bool(torch.equal(k9.blocks,
                                                        k13.blocks))
+        # float32 K13 sums each element in K9's order: equal bit for bit.
+        require(bf16 or out["bitwise_k9_k13"][what],
+                f"K13 {what} differs from K9 in some bit")
+        require(torch.equal(spgemm_tiled_stream(X, X, plan).blocks,
+                            k13.blocks), f"K13 {what}: two calls differ")
         out["blocks"][(label, dname)] = X
     return out
 
@@ -1459,9 +1470,9 @@ def torch_csr(torch, M, dev):
         check_invariants=True)
 
 
-def k6_pr3(prep, X):
-    """PR 3's K6 (``sps_tiled_dense_simt``: the SIMT body K5 keeps, one CTA
-    per SM, synchronous staging) on the same call as
+def simt_body(prep, X):
+    """The first K6 and K5 (``sps_tiled_dense_simt``: the SIMT body, one
+    CTA per SM, synchronous staging) on the same call as
     ``spmm_tiled_dense``, X cast included: the timing yardstick of the
     ring. Used nowhere in the port."""
     import torch
@@ -1529,7 +1540,8 @@ def spmm_timings(torch, spmm, launches: dict) -> list[dict]:
                                     spmm_tiled_onehot,
                                     spmm_tiled_onehot_reference,
                                     spmm_tiled_window,
-                                    spmm_tiled_window_reference)
+                                    spmm_tiled_window_reference,
+                                    to_tiled_dense)
 
     reg, win, dense = spmm["reg"], spmm["win"], spmm["dense"]
     X, m = reg["X"], reg["m"]
@@ -1586,19 +1598,25 @@ def spmm_timings(torch, spmm, launches: dict) -> list[dict]:
                          nnz=nnz, live_tiles=live,
                          occupied_column_blocks=occupied, **extra))
 
+    def simt_on(prep):
+        # The first SIMT body on the same live tiles (the layout's tile
+        # columns reconstructed once, outside the timing).
+        rec = to_tiled_dense(prep)
+        return lambda _, Xk: simt_body(rec, Xk)
+
     c3 = "config 3"
     add("spmm_tiled_window", "f32", c3 + " (prepare_general)",
         win["prep_f32"], win["Xp"], spmm_tiled_window,
         spmm_tiled_window_reference, 4, F32_FLOPS_PER_S, win["err"]["f32"],
-        lib_ms, nnz)
+        lib_ms, nnz, prior=simt_on(win["prep_f32"]))
     add("spmm_tiled_window", "bf16", c3, win["prep_bf16"], X,
         spmm_tiled_window, spmm_tiled_window_reference, 2, BF16_FLOPS_PER_S,
-        win["err"]["bf16"], lib_ms, nnz)
+        win["err"]["bf16"], lib_ms, nnz, prior=simt_on(win["prep_bf16"]))
     for dname, item, rate in (("f32", 4, F32_FLOPS_PER_S),
                               ("bf16", 2, BF16_FLOPS_PER_S)):
         add("spmm_tiled_dense", dname, c3, dense[dname], X,
             spmm_tiled_dense, spmm_tiled_dense_reference, item, rate,
-            dense["err"][dname], lib_ms, nnz, prior=k6_pr3)
+            dense["err"][dname], lib_ms, nnz, prior=simt_body)
     add("spmm_tiled_onehot", "f32", c3, spmm["onehot"]["prep"], X,
         spmm_tiled_onehot, spmm_tiled_onehot_reference, 4, F32_FLOPS_PER_S,
         spmm["onehot"]["err"], lib_ms, nnz,
@@ -1665,7 +1683,8 @@ def spgemm_timings(torch, spg, launches: dict) -> tuple[list[dict], dict]:
     flops_pair = 2 * TILE_SIDE ** 3
     rows = []
 
-    def row(name, dtype, matrix, ms, plain_ms, nbytes, flops, err, label):
+    def row(name, dtype, matrix, ms, plain_ms, nbytes, flops, err, label,
+            **extra):
         rate = BF16_FLOPS_PER_S if dtype == "bf16" else F32_FLOPS_PER_S
         b_ms, b_by = bound_ms(nbytes, flops, rate)
         lib_ms, lib_err = lib[label]
@@ -1673,7 +1692,7 @@ def spgemm_timings(torch, spg, launches: dict) -> tuple[list[dict], dict]:
                          launches=launches[name], max_abs_err=err, ms=ms,
                          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                          library_ms=lib_ms, library_error=lib_err,
-                         matrix=matrix, n=n, nnz=A.nnz))
+                         matrix=matrix, n=n, nnz=A.nnz, **extra))
 
     for dname in ("f32", "bf16"):
         plan, prep = k8["plan"][dname], k8["prep"][dname]
@@ -1687,7 +1706,7 @@ def spgemm_timings(torch, spg, launches: dict) -> tuple[list[dict], dict]:
             nbytes, plan.n_live * flops_pair, k8["err"][f"band_{dname}"],
             "A A^T")
     for label, dname in (("A A^T", "f32"), ("A A^T", "bf16"),
-                         ("C C", "f32")):
+                         ("C C", "f32"), ("C C", "bf16")):
         plan = pairs["plans"][label]
         X = pairs["blocks"][(label, dname)]
         tiles = np.unique(np.concatenate([plan.pa, plan.pb])).size
@@ -1698,9 +1717,15 @@ def spgemm_timings(torch, spg, launches: dict) -> tuple[list[dict], dict]:
             ms, plain_ms = compare_times(
                 torch, lambda: fn(X, X, plan),
                 lambda: spgemm_tiled_reference(X, X, plan), **kw)
+            extra = {}
+            if fn is spgemm_tiled_stream:
+                # K9, K13's yardstick, in turns with K13 in the same run.
+                extra["ms_again"], extra["k9_ms"] = compare_times(
+                    torch, lambda: fn(X, X, plan),
+                    lambda: spgemm_tiled_pairs(X, X, plan), **kw)
             row(name, dname, f"config 4 {label} (pair plan)", ms, plain_ms,
                 nbytes, plan.n_pairs * flops_pair,
-                pairs["err"][f"{label} {dname}"], label)
+                pairs["err"][f"{label} {dname}"], label, **extra)
 
     plan, acon, bcon = spg["esc"]["plans"]["device"]
     ends = {
@@ -2012,6 +2037,7 @@ def main() -> int:
             "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "library_ms": row["library_ms"],
             "prior_design_ms": row.get("prior_design_ms"),
+            "k9_ms": row.get("k9_ms"),
             "roofline_share": row["bound_ms"] / row["ms"],
             "device": card, "nvidia_smi": smi}), flush=True)
     print(json.dumps({

@@ -13,8 +13,8 @@
 //     transposed); flat blocks (T, 128, 128).
 // K13 sps_spgemm_pairs_stream  replaces spsparse_tpu/ops/spgemm_tiled.py::
 //                              _pairs_stream_kernel
-//     K9's function over the same grid, with the operand chunks of the next
-//     step copied by cp.async while the current one is multiplied.
+//     K9's function, each output tile the sum of its pairs in plan order,
+//     by persistent CTAs that stream the pairs through a cp.async ring.
 //
 // All three write float32 128 x 128 tiles from float32 or bfloat16
 // operands (both operands of one type).
@@ -23,22 +23,21 @@
 // 64 KB (float32) operand tiles, and the operand tiles are shared between
 // pairs, so float32 is bound by the card's float32 rate: the JAX kernels
 // ask for Precision.HIGHEST, true float32, which TF32 is not. bfloat16 on
-// the tensor-core rate would be bound by bytes: the distinct operand tiles
-// once and the output tiles (K8: the whole band) once. These first kernels
-// run both types on the SIMT float32 units (bfloat16 products are exact in
-// float32), with K6's register-blocked body (tiled_common.cuh).
+// the tensor-core rate is bound by bytes: the distinct operand tiles once
+// and the output tiles (K8: the whole band) once. K8 and K9 run both types
+// on the SIMT float32 units (bfloat16 products are exact in float32), with
+// the SIMT register-blocked step (tiled_common.cuh); K13 runs bfloat16 on the
+// tensor cores.
 //
-// Design. One CTA of 256 threads owns one output tile (K9, K13) or band
-// slot (K8) and keeps the 128 x 128 accumulator in registers (8 x 8 a
-// thread); it walks the tile's pairs in plan order and writes the tile
-// once. No atomics and a fixed order, so results repeat from run to run;
-// K9 and K13 sum in the same order. The TPU kernels revisited the output
-// block across consecutive grid steps: here that is the loop inside the
-// CTA.
-//
-// For A B^T the contraction runs along B's rows, like A's: both are read as
-// rows with 16-byte loads (a warp takes whole 32-byte sectors) and
-// transposed into a padded shared array, never with a 512-byte stride.
+// K8, K9. One CTA of 256 threads owns one output tile (K9) or band slot
+// (K8) and keeps the 128 x 128 accumulator in registers (8 x 8 a thread);
+// it walks the tile's pairs in plan order and writes the tile once. No
+// atomics and a fixed order, so results repeat from run to run. The TPU
+// kernels revisited the output block across consecutive grid steps: here
+// that is the loop inside the CTA. For A B^T the contraction runs along
+// B's rows, like A's: both are read as rows with 16-byte loads (a warp takes
+// whole 32-byte sectors) and transposed into a padded shared array, never
+// with a 512-byte stride.
 //
 // K8: the TPU copied a window of G + 2W operand block rows into VMEM for
 // each super-group (megabytes at bench config 4, beyond the 227 KB of shared
@@ -48,16 +47,24 @@
 // 0, i past A's rows, j outside B's) are written as exact zeros: the band
 // is returned whole and every nonzero value of it would be extracted.
 //
-// K13: the TPU kernel double-buffered its operand DMAs across pairs. Here
-// a step is one 16-deep k-chunk of one pair; the chunks of step s + 1 (the
-// next chunk, or the first of the next pair) are copied with cp.async, 16
-// bytes a thread, into the second of two shared stages while step s is
-// multiplied. The stages hold the raw operand rows (bfloat16 stays
-// bfloat16 and is widened at use): 40 KB for float32 A B^T.
-
-#include <cstdint>
+// K13: the TPU kernel double-buffered its operand DMAs across output tiles,
+// in global pair order. Here about two CTAs an SM stay resident, each
+// taking a contiguous range of output tiles balanced by pair count (read
+// from pstart on the device; no host schedule). Each CTA runs K6's ring
+// (tiled_dense.cuh): 3 stages of 16-byte cp.async copies walking its (pair,
+// k0) sequence as one stream, so the next pair's and the next tile's first
+// chunks load while the current ones are multiplied; at a tile boundary the
+// CTA stores and zeroes its accumulator with the next chunks in flight.
+// bfloat16 stays bfloat16 in shared memory (64-deep chunks, 32 KB a stage,
+// XOR-swizzled) and runs mma.sync m16n8k16: A by ldmatrix, B of A B by
+// ldmatrix.trans (K6's X), B of A B^T by ldmatrix (its rows are the n x k
+// operand as they are). float32 runs true float32 SIMT FMAs in 32-deep
+// chunks (rows padded to 36 floats; 34 KB a stage for A B, 36 KB for
+// A B^T), each output element one fmaf a k in K9's order (pairs in plan
+// order, k ascending), so float32 K13 equals K9 bit for bit.
 
 #include "tiled_common.cuh"
+#include "tiled_dense.cuh"
 
 namespace {
 
@@ -215,151 +222,252 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // --- K13 --------------------------------------------------------------------
-// A raw stage holds an A chunk (and a B^T chunk) as 128 rows of 16 values,
-// rows kRawRow elements apart (80 bytes float32, 48 bytes bfloat16): 16-byte
-// aligned for cp.async, and 16 neighbouring rows fall in distinct banks. A B
-// chunk of A B is 16 rows of 128 values.
-template <typename T>
-constexpr int kRawRow = sizeof(T) == 4 ? 20 : 24;
-template <typename T>
-constexpr int kVec = 16 / sizeof(T);  // elements a 16-byte copy
+// A persistent ring over the pair stream, built from K6's primitives
+// (tiled_dense.cuh: Ring<T>, load_stage, cp.async, compute_stage, ldmatrix,
+// mma.sync, store_tile). A stage holds the k-chunk [k0, k0 + kBK) of one
+// pair: A's 128 x kBK chunk laid out as K6 stages a block (Ring<T>::a_off);
+// for A B, B's kBK x 128 rows laid out as K6 stages X (x_off), and for
+// A B^T, B's 128 x kBK chunk laid out like A's.
+using sps_dense::Ring;
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_prior() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
-  const float4 x = *reinterpret_cast<const float4*>(p);
-  v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
-}
-
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&v)[4]) {
-  const uint2 x = *reinterpret_cast<const uint2*>(p);
-  const float2 lo = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&x.x));
-  const float2 hi = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&x.y));
-  v[0] = lo.x; v[1] = lo.y; v[2] = hi.x; v[3] = hi.y;
-}
-
-// Copy the k-chunk [k0, k0 + 16) of tiles a and b into a raw stage.
 template <typename T, bool kTransB>
-__device__ __forceinline__ void copy_chunk(const T* __restrict__ a,
-                                           const T* __restrict__ b, int k0,
-                                           T* sa, T* sb) {
-  constexpr int V = kVec<T>, R = kRawRow<T>;
-  for (int idx = threadIdx.x; idx < kTile * kBK / V; idx += kThreads) {
-    const int r = idx / (kBK / V), c = (idx % (kBK / V)) * V;
-    cp_async16(sa + r * R + c, a + r * kTile + k0 + c);
-    if constexpr (kTransB) cp_async16(sb + r * R + c, b + r * kTile + k0 + c);
-  }
-  if constexpr (!kTransB) {
-    for (int idx = threadIdx.x; idx < kBK * kTile / V; idx += kThreads) {
-      const int k = idx / (kTile / V), n = (idx % (kTile / V)) * V;
-      cp_async16(sb + k * kTile + n, b + (k0 + k) * kTile + n);
-    }
+__host__ __device__ constexpr int pair_stage_elems() {
+  return kTransB ? 2 * Ring<T>::kAElems : Ring<T>::kStageElems;
+}
+
+// The 128 x kBK chunk at k0 of a 128 x 128 tile, rows at Ring<T>::a_off.
+template <typename T>
+__device__ __forceinline__ void load_rows(T* dst, const T* __restrict__ tile,
+                                          int k0, int tid) {
+  using R = Ring<T>;
+  constexpr int kChunks = R::kBK / R::kVec;   // 16-byte chunks a row
+#pragma unroll
+  for (int j = 0; j < sps_dense::kCopies; ++j) {
+    const int q = tid + j * sps_dense::kThreads;
+    const int row = q / kChunks, c = q % kChunks;
+    sps_dense::cp_async16(dst + R::a_off(row, c),
+                          tile + row * kTile + k0 + c * R::kVec, true);
   }
 }
 
-// Output column of a thread's j-th accumulator in K13: K6's layout for A B
-// (16-byte reads along the staged B rows); tx + 16 j for A B^T, so that the
-// threads of a read phase take neighbouring padded rows, in distinct banks.
-template <bool kTransB>
-__device__ __forceinline__ int stream_col(int tx, int j) {
+template <typename T, bool kTransB>
+__device__ __forceinline__ void load_pair_chunk(T* st, const T* __restrict__ a,
+                                                const T* __restrict__ b,
+                                                int k0, int tid) {
   if constexpr (kTransB) {
-    return tx + 16 * j;
+    load_rows(st, a, k0, tid);
+    load_rows(st + Ring<T>::kAElems, b, k0, tid);
   } else {
-    return sps_tiled::out_col<kTile>(tx, j);
+    sps_dense::load_stage<T, true>(st, a, k0, 0, b, kTile, kTile, 0, tid);
   }
 }
 
-// acc += one raw k-chunk, 4 k at a time, k ascending (K9's order).
-template <typename T, bool kTransB>
-__device__ __forceinline__ void fma_raw_chunk(const T* sa, const T* sb,
-                                              int tx, int ty,
-                                              float (&acc)[kTM][kTN]) {
-  constexpr int R = kRawRow<T>;
+// float32 A B^T: K6's 8 x 8 register tile a thread, in another warp
+// layout. Warp w owns rows (w % 4) * 32 .. + 31 and columns (w / 4) * 64 ..
+// + 63; lane (ly, lx) = (lane / 8, lane % 8) owns rows ly + 4 i and columns
+// lx + 8 j of them. Both chunks are read along their rows (k), 36 floats
+// apart: a warp reads 4 distinct A rows (float2, two k) and 8 distinct B
+// rows (one k) at a time, each row in its own group of 4 banks, so no read
+// conflicts; each output element takes one fmaf a k, k ascending (K9's
+// order).
+__device__ __forceinline__ void compute_stage_nt(const float* st,
+                                                 sps_dense::AccF32& acc,
+                                                 int tid) {
+  using R = Ring<float>;
+  const int warp = tid / 32, lane = tid % 32;
+  const float* As = st + ((warp % 4) * 32 + lane / 8) * R::kAStride;
+  const float* Bs =
+      st + R::kAElems + ((warp / 4) * 64 + lane % 8) * R::kAStride;
+#pragma unroll 1
+  for (int k = 0; k < R::kBK; k += 2) {
+    float2 a[8];
 #pragma unroll
-  for (int kq = 0; kq < kBK; kq += 4) {
-    float av[kTM][4], bv[4][kTN];
+    for (int i = 0; i < 8; ++i)
+      a[i] = *reinterpret_cast<const float2*>(As + 4 * i * R::kAStride + k);
 #pragma unroll
-    for (int r = 0; r < kTM; ++r) load4(sa + (ty * kTM + r) * R + kq, av[r]);
+    for (int kk = 0; kk < 2; ++kk) {
+      float x[8];
 #pragma unroll
-    for (int j = 0; j < kTN; ++j) {
-      float v[4];
-      if constexpr (kTransB) {
-        load4(sb + stream_col<true>(tx, j) * R + kq, v);
+      for (int j = 0; j < 8; ++j) x[j] = Bs[8 * j * R::kAStride + k + kk];
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) bv[kk][j] = v[kk];
-      } else if (j % 4 == 0) {
+      for (int i = 0; i < 8; ++i) {
+        const float ai = kk ? a[i].y : a[i].x;
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          load4(sb + (kq + kk) * kTile + stream_col<false>(tx, j), v);
-#pragma unroll
-          for (int c = 0; c < 4; ++c) bv[kk][j + c] = v[c];
-        }
+        for (int j = 0; j < 8; ++j) acc.v[i][j] = fmaf(ai, x[j], acc.v[i][j]);
       }
     }
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int r = 0; r < kTM; ++r)
-#pragma unroll
-        for (int j = 0; j < kTN; ++j)
-          acc[r][j] = fmaf(av[r][kk], bv[kk][j], acc[r][j]);
   }
 }
 
-// K13: one CTA per output tile t; step s is k-chunk s % 8 of pair s / 8.
-template <typename T, bool kTransB>
-__global__ void __launch_bounds__(kThreads)
-    pairs_stream_kernel(const T* __restrict__ a, const T* __restrict__ b,
-                        const int* __restrict__ pa,
-                        const int* __restrict__ pb,
-                        const int* __restrict__ pstart,
-                        float* __restrict__ out) {
-  constexpr int kA = kTile * kRawRow<T>;
-  constexpr int kB = kTransB ? kA : kBK * kTile;
-  constexpr int kChunks = kTile / kBK;
-  __shared__ __align__(16) T sa[2][kA];
-  __shared__ __align__(16) T sb[2][kB];
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int t = blockIdx.x;
-  const int p0 = pstart[t];
-  const int steps = (pstart[t + 1] - p0) * kChunks;
-  float acc[kTM][kTN];
-  zero(acc);
-  auto issue = [&](int step) {
-    const int p = p0 + step / kChunks, st = step & 1;
-    copy_chunk<T, kTransB>(a + pa[p] * kTileElems, b + pb[p] * kTileElems,
-                           (step % kChunks) * kBK, sa[st], sb[st]);
-  };
-  if (steps > 0) issue(0);
-  cp_async_commit();
-  for (int step = 0; step < steps; ++step) {
-    if (step + 1 < steps) issue(step + 1);
-    cp_async_commit();
-    cp_async_wait_prior();  // this step's copies have landed
-    __syncthreads();
-    fma_raw_chunk<T, kTransB>(sa[step & 1], sb[step & 1], tx, ty, acc);
-    __syncthreads();  // the stage is read before step + 2 refills it
+__device__ __forceinline__ void store_tile_nt(const sps_dense::AccF32& acc,
+                                              float* __restrict__ out,
+                                              int tid) {
+  const int warp = tid / 32, lane = tid % 32;
+  float* o = out + ((warp % 4) * 32 + lane / 8) * kTile + (warp / 4) * 64 +
+             lane % 8;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) o[4 * i * kTile + 8 * j] = acc.v[i][j];
+}
+
+// bfloat16 A B^T on mma.sync m16n8k16: K6's warp layout and A fragments; B's
+// rows are the n x k "col" operand as they are, so they take ldmatrix
+// without .trans, addressed like A (matrices: n +0 / +8, then k +0 / +8).
+__device__ __forceinline__ void compute_stage_nt(const __nv_bfloat16* st,
+                                                 sps_dense::AccBF16& acc,
+                                                 int tid) {
+  using R = Ring<__nv_bfloat16>;
+  const __nv_bfloat16* As = st;
+  const __nv_bfloat16* Bs = st + R::kAElems;
+  const int warp = tid / 32, lane = tid % 32;
+  const int wm = (warp % 2) * 64, wn = (warp / 2) * 32;
+  const int lrow = (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int lhalf = lane >> 4;
+#pragma unroll
+  for (int kk = 0; kk < R::kBK; kk += 16) {
+    unsigned a[4][4], b[4][2];
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+      sps_dense::ldmatrix_x4(a[mt], As + R::a_off(wm + mt * 16 + lrow,
+                                                  kk / 8 + lhalf),
+                             false);
+#pragma unroll
+    for (int np = 0; np < 2; ++np) {
+      unsigned r[4];
+      sps_dense::ldmatrix_x4(
+          r, Bs + R::a_off(wn + np * 16 + lrow, kk / 8 + lhalf), false);
+      b[2 * np][0] = r[0]; b[2 * np][1] = r[2];
+      b[2 * np + 1][0] = r[1]; b[2 * np + 1][1] = r[3];
+    }
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+        sps_dense::mma_bf16(acc.v[mt][nt], a[mt], b[nt][0], b[nt][1]);
   }
-  float* tile = out + t * kTileElems;
+}
+
+// The first tile t in [0, n_out] with pstart[t] >= target.
+__device__ __forceinline__ int first_tile(const int* __restrict__ pstart,
+                                          int n_out, long long target) {
+  int lo = 0, hi = n_out;
+  while (lo < hi) {
+    const int mid = (lo + hi) / 2;
+    if (pstart[mid] < target) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  return lo;
+}
+
+// K13: persistent CTAs. CTA g takes the output tiles [t0, t1) whose pairs
+// begin in the g-th of gridDim.x equal parts of the pair stream (the last
+// CTA also takes trailing tiles with no pairs), so the parts differ by less
+// than one tile's pairs. The ring walks the CTA's (pair, k0) sequence in
+// plan order across tile boundaries; at a tile's last chunk the CTA stores
+// and zeroes its accumulator while the next tile's chunks are in flight. A
+// tile with no pairs is stored as zeros.
+template <typename T, bool kTransB>
+__global__ void __launch_bounds__(sps_dense::kThreads, 2)
+    pairs_ring_kernel(const T* __restrict__ a, const T* __restrict__ b,
+                      const int* __restrict__ pa,
+                      const int* __restrict__ pb,
+                      const int* __restrict__ pstart, int n_out,
+                      float* __restrict__ out) {
+  using R = Ring<T>;
+  constexpr int kStage = pair_stage_elems<T, kTransB>();
+  constexpr int kStages = sps_dense::kStages;
+  constexpr int kChunks = kTile / R::kBK;   // chunks a pair
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+  const int tid = threadIdx.x;
+  const long long n_pairs = pstart[n_out];
+  const int g = blockIdx.x, ctas = gridDim.x;
+  const int t0 = first_tile(pstart, n_out, n_pairs * g / ctas);
+  const int t1 = g + 1 == ctas
+                     ? n_out
+                     : first_tile(pstart, n_out, n_pairs * (g + 1) / ctas);
+  const int p0 = pstart[t0];
+  const int total = (pstart[t1] - p0) * kChunks;   // chunks in the ring
+
+  // The producer's cursor over (pair, k0), in the consumer's order.
+  int p_load = p0, k_load = 0;
+  auto issue = [&](int stage) {
+    load_pair_chunk<T, kTransB>(smem + stage * kStage,
+                                a + pa[p_load] * kTileElems,
+                                b + pb[p_load] * kTileElems, k_load, tid);
+    k_load += R::kBK;
+    if (k_load == kTile) {
+      k_load = 0;
+      ++p_load;
+    }
+  };
+
+  typename sps_dense::Acc<T>::type acc;
+  acc.zero();
 #pragma unroll
-  for (int i = 0; i < kTM; ++i)
-#pragma unroll
-    for (int j = 0; j < kTN; ++j)
-      tile[(ty * kTM + i) * kTile + stream_col<kTransB>(tx, j)] = acc[i][j];
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < total) issue(s);
+    sps_dense::cp_async_commit();
+  }
+  int c = 0;
+  for (int t = t0; t < t1; ++t) {
+    const int c_end = (pstart[t + 1] - p0) * kChunks;
+    for (; c < c_end; ++c) {
+      sps_dense::cp_async_wait<kStages - 2>();
+      __syncthreads();   // chunk c landed for all; stage (c - 1) % S is free
+      const int next = c + kStages - 1;
+      if (next < total) issue(next % kStages);
+      sps_dense::cp_async_commit();
+      const T* st = smem + (c % kStages) * kStage;
+      if constexpr (kTransB) {
+        compute_stage_nt(st, acc, tid);
+      } else {
+        sps_dense::compute_stage(st, acc, tid);
+      }
+    }
+    float* tile = out + t * kTileElems;
+    if constexpr (kTransB && sizeof(T) == 4) {
+      store_tile_nt(acc, tile, tid);
+    } else {
+      sps_dense::store_tile(acc, tile, kTile, kTile, 0, 0, tid);
+    }
+    acc.zero();
+  }
+}
+
+// K13 over n_out tiles: as many CTAs as are resident on the card at once
+// (two an SM), at most one a tile.
+template <typename T, bool kTransB>
+int launch_pairs_ring(const T* a, const T* b, const int* pa, const int* pb,
+                      const int* pstart, int n_out, float* out,
+                      cudaStream_t s) {
+  auto kernel = pairs_ring_kernel<T, kTransB>;
+  const int smem =
+      sps_dense::kStages * pair_stage_elems<T, kTransB>() * (int)sizeof(T);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0, per_sm = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, kernel, sps_dense::kThreads, smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long resident = (long long)(per_sm > 0 ? per_sm : 1) * sms;
+  const int grid = (int)(n_out < resident ? n_out : resident);
+  kernel<<<grid, sps_dense::kThreads, smem, s>>>(a, b, pa, pb, pstart, n_out,
+                                                 out);
+  return (int)cudaGetLastError();
 }
 
 template <typename T, bool kTransB>
@@ -372,12 +480,9 @@ int launch_pairs(bool stream_kernel, const void* a, const void* b,
   const int* PB = static_cast<const int*>(pb);
   const int* PS = static_cast<const int*>(pstart);
   float* O = static_cast<float*>(out);
-  if (stream_kernel) {
-    pairs_stream_kernel<T, kTransB><<<n_out, kThreads, 0, s>>>(A, B, PA, PB,
-                                                               PS, O);
-  } else {
-    pairs_kernel<T, kTransB><<<n_out, kThreads, 0, s>>>(A, B, PA, PB, PS, O);
-  }
+  if (stream_kernel)
+    return launch_pairs_ring<T, kTransB>(A, B, PA, PB, PS, n_out, O, s);
+  pairs_kernel<T, kTransB><<<n_out, kThreads, 0, s>>>(A, B, PA, PB, PS, O);
   return (int)cudaGetLastError();
 }
 
@@ -417,8 +522,8 @@ int sps_spgemm_pairs(int dtype, int transpose_b, const void* a,
                         n_out, out, stream);
 }
 
-// K13: K9's function and arguments; operand chunks double-buffered by
-// cp.async (the operands must be 16-byte aligned).
+// K13: K9's function and arguments; persistent CTAs stream the operand
+// chunks through a cp.async ring (the operands must be 16-byte aligned).
 int sps_spgemm_pairs_stream(int dtype, int transpose_b, const void* a,
                             const void* b, const void* pa, const void* pb,
                             const void* pstart, int n_out, void* out,

@@ -18,9 +18,10 @@
 // neighbouring block rows share come from the 50 MB L2. The TPU kernel's
 // 32 MiB VMEM guard is gone: a block row streams through shared memory a
 // k-chunk at a time, at any number of slots. X is bounds-checked, not
-// padded to (nbc*128, Np). sps_tiled_dense_simt is PR 3's K6 (the SIMT body
-// of tiled_common.cuh, which K5 keeps), kept as the timing yardstick of the
-// ring: chip_smoke.py times both in one run, nothing in the port calls it.
+// padded to (nbc*128, Np). sps_tiled_dense_simt is the first K6 and K5 (the
+// SIMT body of tiled_common.cuh), kept as the timing yardstick of the ring:
+// chip_smoke.py times it beside K6 and K5 in one run, nothing in the port
+// calls it.
 //
 // K7: what bounds it, and the design. The TPU kernel built one-hot
 // matrices in VMEM and used the matrix unit to gather and scatter; here no

@@ -1,6 +1,9 @@
-// Shared body of the dense-block tiled SpMM kernels K5 (tiled_window.cu)
-// and K6 (tiled.cu); its k-chunk step (fma_chunk) also serves the SpGEMM
-// kernels K8 and K9 (spgemm.cu).
+// The first, SIMT body of the dense-block tiled SpMM kernels K5
+// (tiled_window.cu) and K6 (tiled.cu), and their column functors. Both
+// kernels run the cp.async ring of tiled_dense.cuh and take this body only
+// for a thin X (N <= 32, BN = 32); BN = 128 serves the first K6, kept as a
+// timing yardstick (sps_tiled_dense_simt). Its k-chunk step (fma_chunk)
+// also serves the SpGEMM kernels K8 and K9 (spgemm.cu).
 //
 // The operand is a sparse pattern of dense 128 x 128 blocks grouped by
 // block row: blocks (nbr, rt, 128, 128) row-major, slot t of block row b

@@ -1,10 +1,13 @@
 // K6's body for Hopper: a pipelined dense-tile SpMM (tiled.cu,
-// sps_tiled_dense), with bfloat16 blocks on the tensor cores.
+// sps_tiled_dense), with bfloat16 blocks on the tensor cores. K5
+// (tiled_window.cu) runs the same body; the SpGEMM pair kernel K13
+// (spgemm.cu) builds on its ring, stage loads and tile products.
 //
 //   Y[b*128 + i, n] = sum_t sum_k blocks[b, t, i, k] * X[tc*128 + k, n]
 //
-// over the live slots t of block row b (tc = tcols[b, t]; the sentinel nbc
-// marks padding), float32 out and float32 accumulation, for float32 or
+// over the live slots t of block row b (tc = cols(b, t), negative on
+// padding: K6's DenseCols reads tcols with the sentinel nbc, K5's WindowCols
+// the super-row window table; tiled_common.cuh), float32 out and float32 accumulation, for float32 or
 // bfloat16 blocks with X in the block's type. Padding slots read nothing,
 // rows of X past K read 0, and Y rows >= M and columns >= N are never
 // written.
@@ -337,10 +340,10 @@ struct Acc<__nv_bfloat16> {
   using type = AccBF16;
 };
 
-template <typename T, bool kAlignedX>
+template <typename T, typename Cols, bool kAlignedX>
 __global__ void __launch_bounds__(kThreads, 2)
-    dense_ring_kernel(const T* __restrict__ blocks,
-                      sps_tiled::DenseCols cols, int rt, int nchunks,
+    dense_ring_kernel(const T* __restrict__ blocks, Cols cols, int rt,
+                      int nchunks,
                       const T* __restrict__ X, long long K, int N,
                       float* __restrict__ Y, long long M) {
   using R = Ring<T>;
@@ -399,12 +402,12 @@ __global__ void __launch_bounds__(kThreads, 2)
   store_tile(acc, Y, M, N, b, n0, tid);
 }
 
-template <typename T, bool kAlignedX>
-cudaError_t launch_ring(const T* blocks, sps_tiled::DenseCols cols, int rt,
+template <typename T, typename Cols, bool kAlignedX>
+cudaError_t launch_ring(const T* blocks, Cols cols, int rt,
                         long long nchunks, long long grid, const T* X,
                         long long K, int N, float* Y, long long M,
                         cudaStream_t stream) {
-  auto kernel = dense_ring_kernel<T, kAlignedX>;
+  auto kernel = dense_ring_kernel<T, Cols, kAlignedX>;
   const int smem = kStages * stage_bytes<T>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -419,11 +422,12 @@ cudaError_t launch_ring(const T* blocks, sps_tiled::DenseCols cols, int rt,
   return cudaGetLastError();
 }
 
-// K6 over nbr block rows. N <= 32 takes PR 3's SIMT body (BN = 32); wider X
-// the ring, 128 columns a CTA. Returns cudaGetLastError() after the launch.
-template <typename T>
-int launch_dense_ring(const void* blocks, sps_tiled::DenseCols cols, int nbr,
-                      int rt, const void* X, long long K, int N, void* Y,
+// K6 (DenseCols) or K5 (WindowCols) over nbr block rows. N <= 32 takes the
+// SIMT body of tiled_common.cuh (BN = 32); wider X the ring, 128 columns a
+// CTA. Returns cudaGetLastError() after the launch.
+template <typename T, typename Cols>
+int launch_dense_ring(const void* blocks, Cols cols, int nbr, int rt,
+                      const void* X, long long K, int N, void* Y,
                       long long M, cudaStream_t stream) {
   if (nbr <= 0 || N <= 0 || M <= 0) return (int)cudaSuccess;
   if (N <= 32)
@@ -439,10 +443,12 @@ int launch_dense_ring(const void* blocks, sps_tiled::DenseCols cols, int nbr,
   float* y = static_cast<float*>(Y);
   const bool aligned = N % Ring<T>::kVec == 0 &&
                        reinterpret_cast<std::uintptr_t>(X) % 16 == 0;
-  return (int)(aligned ? launch_ring<T, true>(blk, cols, rt, nchunks, grid, x,
-                                              K, N, y, M, stream)
-                       : launch_ring<T, false>(blk, cols, rt, nchunks, grid,
-                                               x, K, N, y, M, stream));
+  return (int)(aligned ? launch_ring<T, Cols, true>(blk, cols, rt, nchunks,
+                                                    grid, x, K, N, y, M,
+                                                    stream)
+                       : launch_ring<T, Cols, false>(blk, cols, rt, nchunks,
+                                                     grid, x, K, N, y, M,
+                                                     stream));
 }
 
 }  // namespace sps_dense

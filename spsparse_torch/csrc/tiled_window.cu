@@ -9,24 +9,32 @@
 //
 // What bounds it. The same products as K6: 2*128*128*N operations per live
 // block against 64 KB (float32) or 32 KB (bfloat16) of block bytes, so at
-// N = 128 float32 is bound by the card's float32 rate and bfloat16 (on the
-// tensor-core rate) by memory: the blocks once, X once per occupied column
-// block, Y once.
+// N = 128 float32 is bound by the card's float32 rate (true float32, never
+// TF32) and bfloat16, on the tensor-core rate, by memory: the blocks once,
+// X once per occupied column block, Y once.
 //
-// Design. The TPU kernel copied each super-row's X window once into VMEM
-// and sliced it there. At bench config 3 a window is about 67 column blocks
-// x 128 rows x 128 bfloat16 columns, about 2.2 MB, which does not fit
-// Hopper's 227 KB of shared memory. The Hopper design leans on the 50 MB L2
-// instead: the CTAs run in block-row order (one CTA per block row and
-// column chunk, the chunks of a row next to each other), so the block rows
-// of a super-row run together and read their window's X tiles while the
-// tiles are in L2; each window comes from device memory about once. The
-// body is K6's (tiled_common.cuh); only the tile column comes from the
-// window table, read as it is. The TPU's call-time delegation to K6 for a
-// wide RHS (the VMEM scratch budget) is gone: K5 has no scratch budget and
-// runs at every width.
+// Design. K5 runs K6's body (tiled_dense.cuh): a 3-stage cp.async ring of
+// k-chunks over the live (slot, k0) sequence of a block row, two CTAs per
+// SM, bfloat16 on mma.sync tensor cores, float32 on SIMT FMAs with an 8 x 8
+// register tile a thread; only the tile column comes from the window table
+// (WindowCols, read as it is) instead of K6's tcols. A thin X (N <= 32)
+// keeps the SIMT body of tiled_common.cuh, 32 output columns a CTA, as K6
+// does.
+//
+// The TPU kernel copied each super-row's X window once into VMEM and sliced
+// it there. At bench config 3 a window is about 67 column blocks x 128 rows
+// x 128 bfloat16 columns, about 2.2 MB, which does not fit Hopper's 227 KB
+// of shared memory. The Hopper design leans on the 50 MB L2 instead: the
+// grid keeps block-row order (CTA b * nchunks + chunk, the column chunks of
+// a row next to each other), so the block rows of a super-row run together
+// and read their window's X tiles while the tiles are in L2; each window
+// comes from device memory about once. The TPU's call-time delegation to K6
+// for a wide RHS (the VMEM scratch budget) is gone: K5 has no scratch budget
+// and runs at every width. The blocks must be 16-byte aligned for cp.async
+// (the wrapper checks).
 
 #include "tiled_common.cuh"
+#include "tiled_dense.cuh"
 
 extern "C" {
 
@@ -42,11 +50,11 @@ int sps_tiled_window(int dtype, const void* wstart, const void* offs,
                                    static_cast<const int*>(offs), rt, group};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return sps_tiled::launch_dense_tiles<float>(blocks, cols, nbr, rt, X, K,
-                                                N, Y, M, s);
+    return sps_dense::launch_dense_ring<float>(blocks, cols, nbr, rt, X, K,
+                                               N, Y, M, s);
   if (dtype == 1)
-    return sps_tiled::launch_dense_tiles<__nv_bfloat16>(blocks, cols, nbr,
-                                                        rt, X, K, N, Y, M, s);
+    return sps_dense::launch_dense_ring<__nv_bfloat16>(blocks, cols, nbr, rt,
+                                                       X, K, N, Y, M, s);
   return (int)cudaErrorInvalidValue;
 }
 

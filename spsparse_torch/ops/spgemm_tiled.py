@@ -30,8 +30,9 @@ sparse set of occupied output tiles:
   (:mod:`.spgemm_window`), the rest through K9.
 
 f32 tiles multiply in true float32 (the JAX package's ``HIGHEST``
-precision); bf16 tiles are widened to float32, where their products are
-exact. Results accumulate in float32. The operand's device decides between
+precision), and K13 sums each f32 output element in K9's order, so the two
+agree bit for bit; bf16 products are exact in float32 (K9 widens the tiles,
+K13 multiplies them on the tensor cores). Results accumulate in float32. The operand's device decides between
 kernel and plain version, as everywhere in the port, so there is no
 ``use_pallas`` or ``interpret``; ``use_window`` stays, since it chooses
 between two kernels.
@@ -366,10 +367,11 @@ spgemm_tiled_pairs.launches = 0
 
 def spgemm_tiled_stream(A: TiledBlocks, B: TiledBlocks,
                         plan: TiledGemmPlan) -> TiledBlocks:
-    """:func:`spgemm_tiled_pairs`'s function through kernel K13, which
-    double-buffers the operand chunks with ``cp.async`` across pairs
-    (``spgemm_tiled_stream.launches`` counts its launches); CPU tensors
-    take :func:`spgemm_tiled_reference`. Nothing routes to it: like the JAX
+    """:func:`spgemm_tiled_pairs`'s function through kernel K13: persistent
+    CTAs, each over a range of output tiles balanced by pair count, stream
+    the pairs through a ``cp.async`` ring across tile boundaries; bf16 runs
+    on the tensor cores (``spgemm_tiled_stream.launches`` counts its
+    launches). CPU tensors take :func:`spgemm_tiled_reference`. Nothing routes to it: like the JAX
     ``_spgemm_tiled_pallas_v2``, it is kept to be measured against K9."""
     if plan.n_pairs == 0:
         return _empty_result(plan, A.device)

@@ -9,9 +9,10 @@ blocks), and each slot stores its tile's offset in the window (-1 =
 padding). On the TPU the window is copied once per super-row into VMEM.
 On Hopper a window (about 2.2 MB at bench config 3) does not fit shared
 memory; the kernel ``sps_tiled_window`` (``spsparse_torch/csrc/
-tiled_window.cu``) runs the block rows of a super-row together so that
-the window's X tiles are read from the L2 cache, and reads the table as it
-is.
+tiled_window.cu``) runs K6's ``cp.async`` ring (``tiled_dense.cuh``) with
+the tile column read from the table as it is, and keeps the block rows of
+a super-row together so that the window's X tiles are read from the L2
+cache. The blocks must be 16-byte aligned.
 
 On CUDA tensors :func:`spmm_tiled_window` launches K5; on CPU tensors it
 runs the plain version :func:`spmm_tiled_window_reference`. Unlike the JAX
@@ -168,6 +169,8 @@ def _window(prep: PreparedTiledWindow, X: Tensor) -> Tensor:
         if t.dtype != torch.int32 or not t.is_contiguous():
             raise ValueError(f"PreparedTiledWindow.{name} must be "
                              "contiguous int32")
+    if prep.blocks.data_ptr() % 16:
+        raise ValueError("PreparedTiledWindow.blocks must be 16-byte aligned")
     lib = backend.load_kernels()
     err = lib.sps_tiled_window(
         code, prep.wstart.data_ptr(), prep.offs.data_ptr(),

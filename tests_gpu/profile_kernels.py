@@ -11,8 +11,9 @@ phase 14, and bench config 4's matrix (2**17 rows) with its band plan and
 pair plans (A A^T, and C C for C = A A^T), and bench config 2c (2**20 rows,
 10 uniform-random columns a row) with its shuffle layout and CSR products
 and the (1024, 64, 128) block sort, as ``chip_smoke.py`` does; runs each
-wrapper (and the library calls and earlier kernel designs, PR 3's K6 and
-PR 5's K11, that ``chip_smoke.py`` uses as yardsticks) 10 times under
+wrapper (and the library calls and earlier kernel designs, the first SIMT
+body on K6's and K5's tiles and K11's scatter design, that
+``chip_smoke.py`` uses as yardsticks) 10 times under
 ``torch.profiler``, and prints one JSON line per workload: the CUDA kernels
 it ran, their count and device time, and the device time per call. Needs
 one CUDA card.
@@ -41,7 +42,7 @@ from spsparse_torch.ops import (best_spgemm, cg_solve_dia,  # noqa: E402
                                 spmm_dia_mrhs,
                                 spmm_tiled_dense, spmm_tiled_onehot,
                                 spmm_tiled_window, spmv_dia_chain,
-                                spmv_dia_stream)
+                                spmv_dia_stream, to_tiled_dense)
 from spsparse_torch.ops import (csr_products,  # noqa: E402
                                 prepare_shuffle_spmv, segmented_row_sums,
                                 shuffle_gather, sort_blocks, spmv_shuffle)
@@ -86,6 +87,7 @@ def main() -> int:
     X3 = torch.from_numpy(Xh).to(dev)
     w32 = prepare_tiled_window(tl, dtype=torch.float32)
     w16 = prepare_tiled_window(tl, group=cs.WINDOW_GROUP)
+    w32_tiles, w16_tiles = to_tiled_dense(w32), to_tiled_dense(w16)
     d32 = prepare_tiled_dense(tl)
     d16 = prepare_tiled_dense(tl, dtype=torch.bfloat16)
     rows = prepare_tiled_rows(tl)
@@ -111,10 +113,13 @@ def main() -> int:
     ta = {name: densify_tiled(tl4, dtype=dt) for name, dt in
           (("f32", torch.float32), ("bf16", torch.bfloat16))}
     plan_t = plan_tiled_spgemm(ta["f32"], ta["f32"], transpose_b=True)
-    tc = densify_tiled(sp.to_tiled(best_spgemm(A4, A4, transpose_b=True)))
-    plan_n = plan_tiled_spgemm(tc, tc)
-    A64 = cs._csr_of(A4)
+    C4 = best_spgemm(A4, A4, transpose_b=True)
+    tc = {name: densify_tiled(sp.to_tiled(C4), dtype=dt) for name, dt in
+          (("f32", torch.float32), ("bf16", torch.bfloat16))}
+    plan_n = plan_tiled_spgemm(tc["f32"], tc["f32"])
+    A64, C64 = cs._csr_of(A4), cs._csr_of(C4)
     L4, R4 = cs.torch_csr(torch, A64, dev), cs.torch_csr(torch, A64.T, dev)
+    Cl4 = cs.torch_csr(torch, C64, dev)
     r2, c2, v2, x2 = cs.cfg2c_entries(n)
     A2 = cs.build_coo(sp, dev, (n, n), r2, c2, v2)
     shuf = prepare_shuffle_spmv(A2)
@@ -140,10 +145,14 @@ def main() -> int:
         "library A_csr @ X.T": lambda: A_csr @ X.T,
         "K5 f32, config 3 (group 16)": lambda: spmm_tiled_window(w32, X3),
         "K5 bf16, config 3 (group 32)": lambda: spmm_tiled_window(w16, X3),
+        "K5 f32, config 3 (group 16), first SIMT body": lambda: cs.simt_body(
+            w32_tiles, X3),
+        "K5 bf16, config 3 (group 32), first SIMT body": lambda: cs.simt_body(
+            w16_tiles, X3),
         "K6 f32, config 3": lambda: spmm_tiled_dense(d32, X3),
         "K6 bf16, config 3": lambda: spmm_tiled_dense(d16, X3),
-        "K6 f32, config 3, PR 3's SIMT body": lambda: cs.k6_pr3(d32, X3),
-        "K6 bf16, config 3, PR 3's SIMT body": lambda: cs.k6_pr3(d16, X3),
+        "K6 f32, config 3, first SIMT body": lambda: cs.simt_body(d32, X3),
+        "K6 bf16, config 3, first SIMT body": lambda: cs.simt_body(d16, X3),
         "K7 f32, config 3": lambda: spmm_tiled_onehot(rows, X3),
         "library A3_csr @ X, config 3": lambda: A3_csr @ X3,
         "K7 f32, one_hot route": lambda: spmm_tiled_onehot(pg.prep, Xo),
@@ -158,11 +167,16 @@ def main() -> int:
             ta["f32"], ta["f32"], plan_t),
         "K13 bf16, config 4 A A^T pairs": lambda: spgemm_tiled_stream(
             ta["bf16"], ta["bf16"], plan_t),
-        "K9 f32, config 4 C C pairs": lambda: spgemm_tiled_pairs(tc, tc,
-                                                                 plan_n),
-        "K13 f32, config 4 C C pairs": lambda: spgemm_tiled_stream(tc, tc,
-                                                                   plan_n),
+        "K9 f32, config 4 C C pairs": lambda: spgemm_tiled_pairs(
+            tc["f32"], tc["f32"], plan_n),
+        "K9 bf16, config 4 C C pairs": lambda: spgemm_tiled_pairs(
+            tc["bf16"], tc["bf16"], plan_n),
+        "K13 f32, config 4 C C pairs": lambda: spgemm_tiled_stream(
+            tc["f32"], tc["f32"], plan_n),
+        "K13 bf16, config 4 C C pairs": lambda: spgemm_tiled_stream(
+            tc["bf16"], tc["bf16"], plan_n),
         "library A4_csr @ A4T_csr, config 4": lambda: L4 @ R4,
+        "library C4_csr @ C4_csr, config 4": lambda: Cl4 @ Cl4,
         "K10 f32, config 2c CSR products": lambda: segmented_row_sums(
             prod2, csr2.row_ptr, nrows=n, rows_per_block=256,
             entries_per_block=1024),

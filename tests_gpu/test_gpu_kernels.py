@@ -12,7 +12,8 @@ CG iterations against its plain version and the composed solve over K1
 (the rounding differences compound through the recurrences). K5-K7
 (tiled general SpMM) and K8, K9, K13 (tiled SpGEMM): float32 rtol 1e-5
 with atol 1e-5 of max|ref|; bfloat16 blocks atol 1e-4 of max|ref| (exact
-products, float32 sums in another order); gradients rtol/atol 1e-4. K10
+products, float32 sums in another order); gradients rtol/atol 1e-4;
+float32 K13 equal to K9 bit for bit (the same sum order). K10
 rtol/atol 1e-5 (another sum order); K11's slot grid bit for bit (one
 multiply a slot, the same slots as the plain sort pipeline), its SpMV
 rtol 1e-5 against the plain version and float64; K12 keys exact, payloads
@@ -349,6 +350,91 @@ def test_k5_matches_plain_and_k6(dtype, group, m, k, N, empty):
                                **_scaled(_tol(dtype), ref))
 
 
+def window_prep(tcols, blocks, nbc, group, shape, fill):
+    """A ``PreparedTiledWindow`` of a tile-column table (``nbc`` marks
+    padding): block rows padded to whole super-rows of ``group`` (padding
+    slots, blocks full of ``fill``), each super-row's window starting at its
+    least live tile column."""
+    from spsparse_torch.ops import PreparedTiledWindow
+
+    nbr, rt = tcols.shape
+    nsuper = -(-nbr // group)
+    pad = nsuper * group - nbr
+    tc = torch.cat([tcols, tcols.new_full((pad, rt), nbc)])
+    live = tc < nbc
+    lo = torch.where(live, tc, nbc).reshape(nsuper, -1).amin(dim=1)
+    wstart = torch.where(lo < nbc, lo, 0).to(torch.int32)
+    offs = torch.where(live, tc - wstart.repeat_interleave(group)[:, None],
+                       -1)
+    blocks = torch.cat([blocks, blocks.new_full(
+        (pad,) + tuple(blocks.shape[1:]), fill)])
+    return PreparedTiledWindow(
+        wstart=wstart, offs=offs.to(torch.int32).reshape(-1).contiguous(),
+        blocks=blocks, shape=shape, group=group, ws=nbc)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("group", [3, 16])
+@pytest.mark.parametrize("N", [1, 32, 33, 128, 200])
+def test_k5_ring_edges(dtype, group, N):
+    """K5 on K6's ring (N > 32) and the thin body: ragged M and K, 4 block
+    rows (not a multiple of the group: the padding rows of the last
+    super-row are never launched), windows that start past column 0,
+    padding slots, an all-padding block row, a NaN-filled Y allocation;
+    padding slots' blocks (NaN) are never read."""
+    from spsparse_torch.ops import (spmm_tiled_window,
+                                    spmm_tiled_window_reference)
+
+    dev = _cuda()
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(100 + N + group)
+    M, K, nbc = 3 * 128 + 50, 8 * 128 - 37, 8
+    tcols = torch.tensor([[3, 7, nbc], [nbc, nbc, nbc], [5, nbc, 4],
+                          [7, 6, 5]], dtype=torch.int32, device=dev)
+    blocks = torch.from_numpy(rng.uniform(-1, 1, (4, 3, 128, 128)).astype(
+        np.float32)).to(dev)
+    pad = (tcols == nbc)[:, :, None, None]
+    prep = window_prep(tcols, torch.where(pad, 0.0, blocks).to(dt), nbc,
+                       group, (M, K), 0.0)
+    assert prep.nbr > 4 and bool((prep.wstart > 0).any())
+    X = torch.from_numpy(rng.uniform(-1, 1, (K, N)).astype(np.float32)).to(
+        dev)
+    dirty_cache(dev, M * N * 4)
+    before = spmm_tiled_window.launches
+    Y = spmm_tiled_window(prep, X)
+    torch.cuda.synchronize()
+    assert spmm_tiled_window.launches == before + 1
+    assert Y.shape == (M, N) and not bool(torch.isnan(Y).any())
+    assert not bool(Y[128:256].any())            # the all-padding block row
+    ref = spmm_tiled_window_reference(prep, X)
+    torch.testing.assert_close(Y, ref, **_scaled(_tol(dtype), ref))
+    nan_pad = window_prep(
+        tcols, torch.where(pad, float("nan"), blocks).to(dt), nbc, group,
+        (M, K), float("nan"))
+    assert torch.equal(spmm_tiled_window(nan_pad, X), Y)
+
+
+def test_k5_rejects_misaligned_blocks():
+    """The ring's cp.async needs 16-byte aligned blocks: a view that starts
+    one element into its storage raises before any launch."""
+    import dataclasses
+
+    from spsparse_torch.ops import prepare_tiled_window, spmm_tiled_window
+
+    dev = _cuda()
+    prep = prepare_tiled_window(regrid(dev, 1000, 6, 5), group=4,
+                                dtype=torch.float32)
+    flat = torch.zeros(prep.blocks.numel() + 1, device=dev)
+    bad = flat[1:].view(prep.blocks.shape)
+    bad.copy_(prep.blocks)
+    assert bad.is_contiguous() and bad.data_ptr() % 16
+    before = spmm_tiled_window.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        spmm_tiled_window(dataclasses.replace(prep, blocks=bad),
+                          torch.ones((2000, 128), device=dev))
+    assert spmm_tiled_window.launches == before
+
+
 @pytest.mark.parametrize("m,k,N,empty", TILED_CASES)
 def test_k7_matches_plain(m, k, N, empty):
     from spsparse_torch.ops import (prepare_tiled_rows, spmm_tiled_onehot,
@@ -543,6 +629,95 @@ def test_k9_k13_match_plain(dtype, transpose_b, kind):
                                    **_scaled(_tol(dtype), ref))
         outs.append(out.blocks)
     torch.testing.assert_close(outs[1], outs[0], **_scaled(_tol(dtype), ref))
+    if dtype == "float32":      # K13 sums in K9's order
+        assert torch.equal(outs[1], outs[0])
+    assert torch.equal(spgemm_tiled_stream(ta, tb, plan).blocks, outs[1])
+
+
+def diagonal_pair_operands(dev, n, transpose_b, dt, seed):
+    """Flat operands whose product has exactly the n output tiles (i, i),
+    tile i summing r_i in {1, 2, 3} pairs: A holds tiles (i, 3i + s) for
+    s < r_i, B tiles (3i + s, i) (for A B^T, (i, 3i + s)) for s < 3. Values
+    uniform(-1, 1) from a seeded generator on the card."""
+    import importlib
+
+    tb_cls = importlib.import_module("spsparse_torch.ops.spgemm_tiled") \
+        .TiledBlocks
+    r = np.random.default_rng(seed).integers(1, 4, n)
+    a_row = np.repeat(np.arange(n), r)
+    a_col = 3 * a_row + np.arange(a_row.size) - np.repeat(np.cumsum(r) - r,
+                                                           r)
+    b_i = np.repeat(np.arange(n), 3)
+    b_k = 3 * b_i + np.tile(np.arange(3), n)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def tiled(rows, cols, shape):
+        blocks = torch.rand((rows.size, 128, 128), generator=gen,
+                            device=dev) * 2 - 1
+        return tb_cls(
+            tile_row=torch.from_numpy(rows.astype(np.int32)).to(dev),
+            tile_col=torch.from_numpy(cols.astype(np.int32)).to(dev),
+            blocks=blocks.to(dt), shape=shape)
+
+    A = tiled(a_row, a_col, (n * 128, 3 * n * 128))
+    B = (tiled(b_i, b_k, (n * 128, 3 * n * 128)) if transpose_b
+         else tiled(b_k, b_i, (3 * n * 128, n * 128)))
+    return A, B
+
+
+def with_empty_tiles(plan, at):
+    """``plan`` with an output tile of no pairs inserted before each old
+    tile index in ``at`` (at sentinel coordinates)."""
+    import importlib
+
+    plan_cls = importlib.import_module("spsparse_torch.ops.spgemm_tiled") \
+        .TiledGemmPlan
+    at = np.sort(np.asarray(at))
+    old = np.arange(plan.n_out_tiles)
+    new_of_old = old + np.searchsorted(at, old, side="right")
+    empty = at + np.arange(at.size)
+    rows = np.full(plan.n_out_tiles + at.size, -(-plan.out_shape[0] // 128),
+                   np.int32)
+    cols = np.full_like(rows, -(-plan.out_shape[1] // 128))
+    rows[new_of_old], cols[new_of_old] = plan.out_tile_row, plan.out_tile_col
+    return plan_cls(pa=plan.pa, pb=plan.pb,
+                    oid=new_of_old[plan.oid].astype(np.int32),
+                    out_tile_row=rows, out_tile_col=cols,
+                    transpose_b=plan.transpose_b,
+                    out_shape=plan.out_shape), empty
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("transpose_b", [False, True])
+@pytest.mark.parametrize("n", [1, 261, 2000])
+def test_k13_ring_tile_counts(dtype, transpose_b, n):
+    """K13's persistent CTAs over fewer output tiles than resident CTAs
+    (4), about as many (264: two CTAs on each of 132 SMs) and more (2003),
+    with tiles of no pairs first, in the middle and last (stored as exact
+    zeros over a NaN-filled allocation); float32 equal to K9 bit for bit,
+    and two calls bit-identical."""
+    from spsparse_torch.ops import (plan_tiled_spgemm, spgemm_tiled_pairs,
+                                    spgemm_tiled_reference,
+                                    spgemm_tiled_stream)
+
+    dev = _cuda()
+    A, B = diagonal_pair_operands(dev, n, transpose_b, getattr(torch, dtype),
+                                  n)
+    plan = plan_tiled_spgemm(A, B, transpose_b=transpose_b)
+    assert plan.n_out_tiles == n
+    plan, empty = with_empty_tiles(plan, [0, n // 2, n])
+    ref = spgemm_tiled_reference(A, B, plan).blocks
+    dirty_cache(dev, plan.n_out_tiles * 128 * 128 * 4)
+    before = spgemm_tiled_stream.launches
+    got = spgemm_tiled_stream(A, B, plan).blocks
+    torch.cuda.synchronize()
+    assert spgemm_tiled_stream.launches == before + 1
+    assert got.shape == (n + 3, 128, 128)
+    torch.testing.assert_close(got, ref, **_scaled(_tol(dtype), ref))
+    assert not bool(got[torch.from_numpy(empty).to(dev)].any())
+    assert torch.equal(spgemm_tiled_stream(A, B, plan).blocks, got)
+    if dtype == "float32":
+        assert torch.equal(spgemm_tiled_pairs(A, B, plan).blocks, got)
 
 
 def test_spgemm_cuda_tensors_never_reach_plain_versions(monkeypatch):
