@@ -72,13 +72,15 @@ operand:
 17. K8: ``best_spgemm(A, A, transpose_b=True)`` (routes ``tiled`` and
     ``window``) in float32 and ``spgemm_tiled`` with bfloat16 blocks
     against scipy; the band of ``plan_window_spgemm`` through K8 against
-    its plain version in both types, its dead slots exactly zero.
+    its plain version in both types, its dead slots exactly zero; float32
+    K8 must equal the first K8 body bit for bit.
 18. K9 and K13: ``spgemm_tiled(A, A, transpose_b=True, use_window=False)``
     (config 4's pair plan), ``C = A A^T``, ``best_spgemm(C, C)`` and
     ``coo_matrix_power(C, 3)`` (the routes of each product logged) against
     scipy; K9 and K13 on both pair plans, in float32 and bfloat16, against
-    the plain version and each other; float32 K13 must equal K9 bit for
-    bit, and two K13 calls must agree bit for bit.
+    the plain version and each other; float32 K9 must equal K13 and the
+    first K9 body bit for bit, and two K9 and two K13 calls must agree bit
+    for bit.
 19. ESC: ``spgemm_aat`` and ``plan_esc`` (device and host) +
     ``spgemm_planned`` against scipy.
 20. Hand-off: the band's ``TiledBlocks.to_prepared_dense()`` through K6
@@ -114,11 +116,14 @@ columns a row, values uniform(-1, 1), x uniform(-1, 1), all from
     end to end, the ESC ``spgemm_aat`` and the planned apply. K10 and K11
     at config 2c against cuSPARSE's CSR SpMV, with ``spmv_shuffle`` and
     ``spmv_csr_segsum`` end to end in nnz/s; K12 against ``torch.sort``
-    carrying the payload through ``gather``. K5, K6 and K11 are also timed
-    against their earlier designs (the SIMT body they first ran, on K5's
-    live tiles through ``to_tiled_dense``; K11's scatter design), kept in
-    the kernel library as yardsticks and called only here, and K13 against
-    K9 in turns.
+    carrying the payload through ``gather``. K8, K9 and K11 are also timed
+    against their earlier designs (the first SIMT bodies of K8 and K9;
+    K11's scatter design), kept in the kernel library as yardsticks and
+    called only here and in ``tests_gpu/profile_kernels.py``, and K13
+    against K9 in turns. K8, K9 and K13 carry two bounds: the dense one
+    (every tile product whole) and the occupied one (``bound_ms``: only
+    the (warp block, k-chunk) units whose two sides hold a nonzero, which
+    is the work the kernels cannot skip).
 
 The launch counters of the kernel wrappers are reset before each path and
 read after it; a kernel of the path launched no time there fails the run.
@@ -991,7 +996,8 @@ def phase_band(torch, sp, dev, cfg):
     # bfloat16 rounds A's values; the check allows 2e-2 of max|ref|.
     err["bf16"] = check_coo(Cb, cfg["AAT"], "spgemm_tiled bf16 A A^T", 0.0,
                             2e-2)
-    out = {"C": C, "err": err, "band": {}, "plan": {}, "prep": {}}
+    out = {"C": C, "err": err, "band": {}, "plan": {}, "prep": {},
+           "bitwise_k8_simt": None}
     for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         prep = prepare_tiled_dense(cfg["tl"], dtype=dtype)
         plan = plan_window_spgemm(prep.tcols, prep.tcols, nbc=prep.nbc,
@@ -1004,6 +1010,14 @@ def phase_band(torch, sp, dev, cfg):
         dead = torch.from_numpy(plan.cnt == 0).to(band.device)
         require(not bool(band.reshape(-1, TILE_ELEMS)[dead].any()),
                 f"K8 {name}: a band slot with no pair is not exactly zero")
+        require(torch.equal(spgemm_window(plan, prep.blocks), band),
+                f"K8 {name}: two calls differ")
+        if band.is_cuda and name == "f32":
+            # One fmaf a k in the first body's order: equal bit for bit.
+            out["bitwise_k8_simt"] = bool(torch.equal(
+                k8_simt(plan, prep.blocks), band))
+            require(out["bitwise_k8_simt"],
+                    "K8 f32 differs from the first K8 body in some bit")
         out["band"][name], out["plan"][name] = band, plan
         out["prep"][name] = prep
     return out
@@ -1055,7 +1069,8 @@ def phase_pairs(torch, sp, dev, cfg, k8):
             ("C C", "bf16", tc["bf16"], None)]
     out = {"err": err, "routes": {"A A^T": routes, "C C": cc_routes,
                                   "C^3": power_routes},
-           "plans": plans, "blocks": {}, "bitwise_k9_k13": {}}
+           "plans": plans, "blocks": {}, "bitwise_k9_k13": {},
+           "bitwise_k9_simt": {}}
     for label, dname, X, oracle in runs:
         plan = plans[label]
         bf16 = dname == "bf16"
@@ -1080,6 +1095,13 @@ def phase_pairs(torch, sp, dev, cfg, k8):
                 f"K13 {what} differs from K9 in some bit")
         require(torch.equal(spgemm_tiled_stream(X, X, plan).blocks,
                             k13.blocks), f"K13 {what}: two calls differ")
+        require(torch.equal(spgemm_tiled_pairs(X, X, plan).blocks,
+                            k9.blocks), f"K9 {what}: two calls differ")
+        if k9.blocks.is_cuda and not bf16:
+            out["bitwise_k9_simt"][what] = bool(torch.equal(
+                k9_simt(X, X, plan), k9.blocks))
+            require(out["bitwise_k9_simt"][what],
+                    f"K9 {what} differs from the first K9 body in some bit")
         out["blocks"][(label, dname)] = X
     return out
 
@@ -1135,15 +1157,17 @@ def spgemm_path(torch, sp, dev, n=CFG4_N) -> dict:
     k8 = phase_band(torch, sp, dev, cfg)
     plan = k8["plan"]["f32"]
     log(f"phase 17 K8: W {plan.W}, live pairs {plan.n_live}, n_dots "
-        f"{plan.n_dots}, band {plan.nbr_pad} x {plan.nband}; max abs err "
-        f"{k8['err']} ({time.perf_counter() - t0:.3f} s)")
+        f"{plan.n_dots}, band {plan.nbr_pad} x {plan.nband}; f32 == first "
+        f"body bitwise {k8['bitwise_k8_simt']}; max abs err {k8['err']} "
+        f"({time.perf_counter() - t0:.3f} s)")
     t0 = time.perf_counter()
     pairs = phase_pairs(torch, sp, dev, cfg, k8)
     pt = pairs["plans"]
     log(f"phase 18 K9/K13: pair plans A A^T {pt['A A^T'].n_pairs} pairs -> "
         f"{pt['A A^T'].n_out_tiles} tiles, C C {pt['C C'].n_pairs} pairs -> "
         f"{pt['C C'].n_out_tiles} tiles; routes {pairs['routes']}; K13 == "
-        f"K9 bitwise {pairs['bitwise_k9_k13']}; max abs err {pairs['err']} "
+        f"K9 bitwise {pairs['bitwise_k9_k13']}; K9 == first body bitwise "
+        f"{pairs['bitwise_k9_simt']}; max abs err {pairs['err']} "
         f"({time.perf_counter() - t0:.3f} s)")
     t0 = time.perf_counter()
     esc = phase_esc(torch, sp, dev, cfg)
@@ -1470,26 +1494,51 @@ def torch_csr(torch, M, dev):
         check_invariants=True)
 
 
-def simt_body(prep, X):
-    """The first K6 and K5 (``sps_tiled_dense_simt``: the SIMT body, one
-    CTA per SM, synchronous staging) on the same call as
-    ``spmm_tiled_dense``, X cast included: the timing yardstick of the
-    ring. Used nowhere in the port."""
+def k8_simt(plan, a_blocks, b_blocks=None):
+    """The first K8 (``sps_spgemm_window_simt``: one CTA a band slot,
+    synchronous 16-deep staging, SIMT FMAs in both types) on the arguments
+    of ``spgemm_window``: the timing yardstick and the float32 bit-for-bit
+    reference of the ring. Used nowhere in the port."""
     import torch
     from spsparse_torch import backend
     from spsparse_torch.ops.tiled_spmm import check_blocks
 
-    Xk = X.to(prep.blocks.dtype).contiguous()
-    M = prep.shape[0]
-    K, N = Xk.shape
-    Y = torch.empty((M, N), dtype=torch.float32, device=X.device)
-    err = backend.load_kernels().sps_tiled_dense_simt(
-        check_blocks(prep.blocks, "PreparedTiledDense"),
-        prep.tcols.data_ptr(), prep.blocks.data_ptr(), -(-M // TILE_SIDE),
-        prep.tiles_per_row, prep.nbc, Xk.data_ptr(), K, N, Y.data_ptr(), M,
-        backend.current_stream(X.device))
-    backend.check(err, "sps_tiled_dense_simt")
-    return Y
+    b_blocks = a_blocks if b_blocks is None else b_blocks
+    t = plan.tensors(a_blocks.device)
+    NB = plan.nband
+    band = torch.empty((plan.nbr_pad, NB, TILE_SIDE, TILE_SIDE),
+                       dtype=torch.float32, device=a_blocks.device)
+    err = backend.load_kernels().sps_spgemm_window_simt(
+        check_blocks(a_blocks, "A"), a_blocks.data_ptr(),
+        b_blocks.data_ptr(), t["cnt"].data_ptr(), t["pt"].data_ptr(),
+        t["pu"].data_ptr(), t["prefix"].data_ptr(), plan.nbr_pad * NB, NB,
+        plan.W, sum(plan.pmax_band), a_blocks.shape[0], b_blocks.shape[0],
+        plan.rt_a, plan.rt_b, band.data_ptr(),
+        backend.current_stream(a_blocks.device))
+    backend.check(err, "sps_spgemm_window_simt")
+    return band
+
+
+def k9_simt(A, B, plan):
+    """The first K9 (``sps_spgemm_pairs_simt``: one CTA an output tile,
+    synchronous 16-deep staging, SIMT FMAs in both types) on the arguments
+    of ``spgemm_tiled_pairs``; returns the output blocks. The timing
+    yardstick and the float32 bit-for-bit reference of the ring. Used
+    nowhere in the port."""
+    import torch
+    from spsparse_torch import backend
+    from spsparse_torch.ops.tiled_spmm import _DTYPE_CODE
+
+    t = plan.tensors(A.device)
+    out = torch.empty((plan.n_out_tiles, TILE_SIDE, TILE_SIDE),
+                      dtype=torch.float32, device=A.device)
+    err = backend.load_kernels().sps_spgemm_pairs_simt(
+        _DTYPE_CODE[A.blocks.dtype], int(plan.transpose_b),
+        A.blocks.data_ptr(), B.blocks.data_ptr(), t["pa"].data_ptr(),
+        t["pb"].data_ptr(), t["pstart"].data_ptr(), plan.n_out_tiles,
+        out.data_ptr(), backend.current_stream(A.device))
+    backend.check(err, "sps_spgemm_pairs_simt")
+    return out
 
 
 def k11_pr5(prep, x):
@@ -1540,8 +1589,7 @@ def spmm_timings(torch, spmm, launches: dict) -> list[dict]:
                                     spmm_tiled_onehot,
                                     spmm_tiled_onehot_reference,
                                     spmm_tiled_window,
-                                    spmm_tiled_window_reference,
-                                    to_tiled_dense)
+                                    spmm_tiled_window_reference)
 
     reg, win, dense = spmm["reg"], spmm["win"], spmm["dense"]
     X, m = reg["X"], reg["m"]
@@ -1560,16 +1608,9 @@ def spmm_timings(torch, spmm, launches: dict) -> list[dict]:
     rows = []
 
     def add(name, dtype, matrix, prep, Xk, kernel, plain, item, rate, err,
-            lib, nnz, timing_kw=kw, prior=None):
+            lib, nnz, timing_kw=kw):
         ms, plain_ms = compare_times(torch, lambda: kernel(prep, Xk),
                                      lambda: plain(prep, Xk), **timing_kw)
-        extra = {}
-        if prior is not None:
-            check_pair(prior(prep, Xk), kernel(prep, Xk),
-                       f"{name} {dtype}: the earlier design", dtype == "bf16")
-            extra["ms_again"], extra["prior_design_ms"] = compare_times(
-                torch, lambda: kernel(prep, Xk), lambda: prior(prep, Xk),
-                **timing_kw)
         live, occupied = tile_counts(torch, prep)
         n_rhs = Xk.shape[1]
         x_bytes = occupied * TILE_SIDE * n_rhs * item
@@ -1596,27 +1637,21 @@ def spmm_timings(torch, spmm, launches: dict) -> list[dict]:
                          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                          library_ms=lib, matrix=matrix, n=prep.shape[0],
                          nnz=nnz, live_tiles=live,
-                         occupied_column_blocks=occupied, **extra))
-
-    def simt_on(prep):
-        # The first SIMT body on the same live tiles (the layout's tile
-        # columns reconstructed once, outside the timing).
-        rec = to_tiled_dense(prep)
-        return lambda _, Xk: simt_body(rec, Xk)
+                         occupied_column_blocks=occupied))
 
     c3 = "config 3"
     add("spmm_tiled_window", "f32", c3 + " (prepare_general)",
         win["prep_f32"], win["Xp"], spmm_tiled_window,
         spmm_tiled_window_reference, 4, F32_FLOPS_PER_S, win["err"]["f32"],
-        lib_ms, nnz, prior=simt_on(win["prep_f32"]))
+        lib_ms, nnz)
     add("spmm_tiled_window", "bf16", c3, win["prep_bf16"], X,
         spmm_tiled_window, spmm_tiled_window_reference, 2, BF16_FLOPS_PER_S,
-        win["err"]["bf16"], lib_ms, nnz, prior=simt_on(win["prep_bf16"]))
+        win["err"]["bf16"], lib_ms, nnz)
     for dname, item, rate in (("f32", 4, F32_FLOPS_PER_S),
                               ("bf16", 2, BF16_FLOPS_PER_S)):
         add("spmm_tiled_dense", dname, c3, dense[dname], X,
             spmm_tiled_dense, spmm_tiled_dense_reference, item, rate,
-            dense["err"][dname], lib_ms, nnz, prior=simt_body)
+            dense["err"][dname], lib_ms, nnz)
     add("spmm_tiled_onehot", "f32", c3, spmm["onehot"]["prep"], X,
         spmm_tiled_onehot, spmm_tiled_onehot_reference, 4, F32_FLOPS_PER_S,
         spmm["onehot"]["err"], lib_ms, nnz,
@@ -1657,21 +1692,52 @@ def host_ms(torch, fn, reps: int = 3) -> float:
     return float(np.median(out))
 
 
+def occupied_flops(torch, a_blocks, b_blocks, a_idx, b_idx, transpose_b,
+                   bf16) -> int:
+    """Operations of the pairs ``a_blocks[a_idx[p]] . b_blocks[b_idx[p]]``
+    (``^T`` when ``transpose_b``) over the (warp block, k-chunk) units that
+    hold a nonzero on both sides, in the kernels' layout: 32 x 64 output
+    blocks and 32-deep chunks in float32, 64 x 32 and 64-deep in bfloat16.
+    The other units are exact zeros, which the kernels skip."""
+    rm, cn, kd = (64, 32, 64) if bf16 else (32, 64, 32)
+    T = TILE_SIDE
+
+    def units(blocks, rows, rows_are_k):
+        nz = blocks.reshape(-1, T, T) != 0
+        if rows_are_k:     # B of A B: k x n
+            u = nz.reshape(-1, T // kd, kd, T // rows, rows).any(4).any(2)
+            return u.transpose(1, 2).float()
+        return nz.reshape(-1, T // rows, rows, T // kd, kd).any(4).any(
+            2).float()
+
+    ua = units(a_blocks, rm, False)
+    ub = units(b_blocks, cn, not transpose_b)
+    live = 0
+    for sl in range(0, a_idx.numel(), 1 << 16):
+        live += int(torch.einsum("prk,pnk->", ua[a_idx[sl:sl + (1 << 16)]],
+                                 ub[b_idx[sl:sl + (1 << 16)]]).item())
+    return live * 2 * rm * cn * kd
+
+
 def spgemm_timings(torch, spg, launches: dict) -> tuple[list[dict], dict]:
     """Rows of the kernels line for K8, K9 and K13 at config 4, and the
     end-to-end times of the SpGEMM entry points.
 
     Bounds count what the product needs: K8 reads A's live blocks once
-    (the plan is shared) and writes the band once in float32, and does
-    2*128^3 operations per live pair; K9 and K13 read the distinct operand
-    tiles of their plan once, write the output tiles once, and do 2*128^3
-    operations per pair. The library yardstick is cuSPARSE's CSR x CSR
-    SpGEMM of the same operands, extraction of the output included."""
+    (the plan is shared) and writes the band once in float32; K9 and K13
+    read the distinct operand tiles of their plan once and write the
+    output tiles once. ``bound_ms`` takes the operations of the occupied
+    (warp block, k-chunk) units (:func:`occupied_flops`), the work that
+    the kernels cannot skip; ``dense_bound_ms`` 2*128^3 operations a
+    pair. K8 and K9 are timed in turns against their first SIMT bodies,
+    K13 against K9. The library yardstick is cuSPARSE's CSR x CSR SpGEMM of
+    the same operands, extraction of the output included."""
     from spsparse_torch.ops import (plan_esc, spgemm_aat, spgemm_planned_vals,
                                     spgemm_tiled, spgemm_tiled_pairs,
                                     spgemm_tiled_reference,
                                     spgemm_tiled_stream, spgemm_window,
                                     spgemm_window_reference)
+    from spsparse_torch.ops.spgemm_window import band_pair_stream
 
     cfg, k8, pairs = spg["cfg"], spg["k8"], spg["pairs"]
     A, n = cfg["A"], cfg["n"]
@@ -1683,15 +1749,18 @@ def spgemm_timings(torch, spg, launches: dict) -> tuple[list[dict], dict]:
     flops_pair = 2 * TILE_SIDE ** 3
     rows = []
 
-    def row(name, dtype, matrix, ms, plain_ms, nbytes, flops, err, label,
-            **extra):
+    def row(name, dtype, matrix, ms, plain_ms, nbytes, flops, dense_flops,
+            err, label, **extra):
         rate = BF16_FLOPS_PER_S if dtype == "bf16" else F32_FLOPS_PER_S
         b_ms, b_by = bound_ms(nbytes, flops, rate)
+        d_ms, d_by = bound_ms(nbytes, dense_flops, rate)
         lib_ms, lib_err = lib[label]
         rows.append(dict(name=name, dtype=dtype, **KERNELS[name],
                          launches=launches[name], max_abs_err=err, ms=ms,
                          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                          library_ms=lib_ms, library_error=lib_err,
+                         dense_bound_ms=d_ms, dense_bound_by=d_by,
+                         occupied_flops=flops, dense_flops=dense_flops,
                          matrix=matrix, n=n, nnz=A.nnz, **extra))
 
     for dname in ("f32", "bf16"):
@@ -1699,12 +1768,20 @@ def spgemm_timings(torch, spg, launches: dict) -> tuple[list[dict], dict]:
         ms, plain_ms = compare_times(
             torch, lambda: spgemm_window(plan, prep.blocks),
             lambda: spgemm_window_reference(plan, prep.blocks), **kw)
+        ms_again, prior_ms = compare_times(
+            torch, lambda: spgemm_window(plan, prep.blocks),
+            lambda: k8_simt(plan, prep.blocks), **kw)
         live = int((prep.tcols < prep.nbc).sum())
         nbytes = (live * TILE_ELEMS * prep.blocks.element_size()
                   + plan.nbr_pad * plan.nband * TILE_ELEMS * 4)
+        _, a_idx, b_idx = (torch.from_numpy(v).to(prep.blocks.device)
+                           for v in band_pair_stream(plan))
+        flops = occupied_flops(torch, prep.blocks, prep.blocks, a_idx, b_idx,
+                               True, dname == "bf16")
         row("spgemm_window", dname, "config 4 A A^T (band)", ms, plain_ms,
-            nbytes, plan.n_live * flops_pair, k8["err"][f"band_{dname}"],
-            "A A^T")
+            nbytes, flops, plan.n_live * flops_pair,
+            k8["err"][f"band_{dname}"], "A A^T", ms_again=ms_again,
+            prior_design_ms=prior_ms)
     for label, dname in (("A A^T", "f32"), ("A A^T", "bf16"),
                          ("C C", "f32"), ("C C", "bf16")):
         plan = pairs["plans"][label]
@@ -1712,6 +1789,10 @@ def spgemm_timings(torch, spg, launches: dict) -> tuple[list[dict], dict]:
         tiles = np.unique(np.concatenate([plan.pa, plan.pb])).size
         nbytes = (tiles * TILE_ELEMS * X.blocks.element_size()
                   + plan.n_out_tiles * TILE_ELEMS * 4)
+        t = plan.tensors(X.device)
+        flops = occupied_flops(torch, X.blocks, X.blocks, t["pa"].long(),
+                               t["pb"].long(), plan.transpose_b,
+                               dname == "bf16")
         for name, fn in (("spgemm_tiled_pairs", spgemm_tiled_pairs),
                          ("spgemm_tiled_stream", spgemm_tiled_stream)):
             ms, plain_ms = compare_times(
@@ -1723,8 +1804,12 @@ def spgemm_timings(torch, spg, launches: dict) -> tuple[list[dict], dict]:
                 extra["ms_again"], extra["k9_ms"] = compare_times(
                     torch, lambda: fn(X, X, plan),
                     lambda: spgemm_tiled_pairs(X, X, plan), **kw)
+            else:
+                extra["ms_again"], extra["prior_design_ms"] = compare_times(
+                    torch, lambda: fn(X, X, plan),
+                    lambda: k9_simt(X, X, plan), **kw)
             row(name, dname, f"config 4 {label} (pair plan)", ms, plain_ms,
-                nbytes, plan.n_pairs * flops_pair,
+                nbytes, flops, plan.n_pairs * flops_pair,
                 pairs["err"][f"{label} {dname}"], label, **extra)
 
     plan, acon, bcon = spg["esc"]["plans"]["device"]
@@ -2038,6 +2123,7 @@ def main() -> int:
             "bound_ms": row["bound_ms"], "library_ms": row["library_ms"],
             "prior_design_ms": row.get("prior_design_ms"),
             "k9_ms": row.get("k9_ms"),
+            "dense_bound_ms": row.get("dense_bound_ms"),
             "roofline_share": row["bound_ms"] / row["ms"],
             "device": card, "nvidia_smi": smi}), flush=True)
     print(json.dumps({

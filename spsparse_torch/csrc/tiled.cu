@@ -18,10 +18,7 @@
 // neighbouring block rows share come from the 50 MB L2. The TPU kernel's
 // 32 MiB VMEM guard is gone: a block row streams through shared memory a
 // k-chunk at a time, at any number of slots. X is bounds-checked, not
-// padded to (nbc*128, Np). sps_tiled_dense_simt is the first K6 and K5 (the
-// SIMT body of tiled_common.cuh), kept as the timing yardstick of the ring:
-// chip_smoke.py times it beside K6 and K5 in one run, nothing in the port
-// calls it.
+// padded to (nbc*128, Np).
 //
 // K7: what bounds it, and the design. The TPU kernel built one-hot
 // matrices in VMEM and used the matrix unit to gather and scatter; here no
@@ -163,21 +160,6 @@ int sps_tiled_dense(int dtype, const void* tcols, const void* blocks,
   if (dtype == 1)
     return sps_dense::launch_dense_ring<__nv_bfloat16>(blocks, cols, nbr, rt,
                                                        X, K, N, Y, M, s);
-  return (int)cudaErrorInvalidValue;
-}
-
-// PR 3's K6 (timing yardstick), the same arguments as sps_tiled_dense.
-int sps_tiled_dense_simt(int dtype, const void* tcols, const void* blocks,
-                         int nbr, int rt, int nbc, const void* X, long long K,
-                         int N, void* Y, long long M, void* stream) {
-  const sps_tiled::DenseCols cols{static_cast<const int*>(tcols), rt, nbc};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return sps_tiled::launch_dense_tiles<float>(blocks, cols, nbr, rt, X, K,
-                                                N, Y, M, s);
-  if (dtype == 1)
-    return sps_tiled::launch_dense_tiles<__nv_bfloat16>(blocks, cols, nbr,
-                                                        rt, X, K, N, Y, M, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,9 +1,9 @@
 // The first, SIMT body of the dense-block tiled SpMM kernels K5
 // (tiled_window.cu) and K6 (tiled.cu), and their column functors. Both
 // kernels run the cp.async ring of tiled_dense.cuh and take this body only
-// for a thin X (N <= 32, BN = 32); BN = 128 serves the first K6, kept as a
-// timing yardstick (sps_tiled_dense_simt). Its k-chunk step (fma_chunk)
-// also serves the SpGEMM kernels K8 and K9 (spgemm.cu).
+// for a thin X (N <= 32, BN = 32). Its k-chunk step (fma_chunk, at BN =
+// 128) also serves the first SpGEMM bodies, kept in spgemm.cu as the timing
+// yardsticks of K8 and K9.
 //
 // The operand is a sparse pattern of dense 128 x 128 blocks grouped by
 // block row: blocks (nbr, rt, 128, 128) row-major, slot t of block row b
@@ -16,9 +16,9 @@
 // is float32 out and float32 accumulation, for float32 or bfloat16 blocks
 // with X in the block's type.
 //
-// One CTA of 256 threads owns one block row and a chunk of BN output
-// columns (BN = 128, or 32 for a thin X), and keeps the 128 x BN output
-// tile in registers: each thread holds 8 rows x BN/16 columns. For every
+// One CTA of 256 threads owns one block row and a chunk of BN = 32 output
+// columns, and keeps the 128 x BN output tile in registers: each thread
+// holds 8 rows x BN/16 columns. For every
 // live slot it stages the block and the X tile in k-chunks of 16 in shared
 // memory, as float32, and runs plain FMAs over them (for float32 blocks
 // that is true float32, never TF32; bfloat16 products are exact in float32,
@@ -83,7 +83,7 @@ __device__ __forceinline__ int out_col(int tx, int j) {
 // One staged k-chunk of the register-blocked tile product, in k order:
 //   acc[i][j] += sum_k As[k][ty*kTM + i] * Xs[k][out_col<BN>(tx, j)].
 // Xs rows are XS floats apart (BN, or kAStride for a transposed stage).
-// Shared with the SpGEMM kernels K8, K9 (spgemm.cu).
+// Shared with the first SpGEMM bodies (spgemm.cu, BN = 128).
 template <int BN, int XS>
 __device__ __forceinline__ void fma_chunk(const float (*As)[kAStride],
                                           const float (*Xs)[XS], int tx,
@@ -174,27 +174,17 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// Launch over nbr block rows: BN = 32 for N <= 32, else 128. Returns
-// cudaGetLastError() after the launch.
+// Launch over nbr block rows, 32 output columns a CTA (a thin X, N <= 32).
+// Returns cudaGetLastError() after the launch.
 template <typename T, typename Cols>
 int launch_dense_tiles(const void* blocks, Cols cols, int nbr, int rt,
                        const void* X, long long K, int N, void* Y,
                        long long M, cudaStream_t stream) {
   if (nbr <= 0 || N <= 0 || M <= 0) return (int)cudaSuccess;
-  const int bn = N <= 32 ? 32 : 128;
-  const long long nchunks = (N + bn - 1) / bn;
-  const long long grid = (long long)nbr * nchunks;
-  if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const T* blk = static_cast<const T*>(blocks);
-  const T* x = static_cast<const T*>(X);
-  float* y = static_cast<float*>(Y);
-  if (bn == 32) {
-    dense_tiles_kernel<T, 32, Cols><<<(unsigned)grid, kThreads, 0, stream>>>(
-        blk, cols, rt, (int)nchunks, x, K, N, y, M);
-  } else {
-    dense_tiles_kernel<T, 128, Cols><<<(unsigned)grid, kThreads, 0, stream>>>(
-        blk, cols, rt, (int)nchunks, x, K, N, y, M);
-  }
+  if (N > 32) return (int)cudaErrorInvalidValue;
+  dense_tiles_kernel<T, 32, Cols><<<(unsigned)nbr, kThreads, 0, stream>>>(
+      static_cast<const T*>(blocks), cols, rt, 1, static_cast<const T*>(X), K,
+      N, static_cast<float*>(Y), M);
   return (int)cudaGetLastError();
 }
 

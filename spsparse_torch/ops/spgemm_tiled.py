@@ -20,8 +20,11 @@ sparse set of occupied output tiles:
   tile's pair range.
 * :func:`spgemm_tiled_pairs` (K9, ``sps_spgemm_pairs``) and
   :func:`spgemm_tiled_stream` (K13, ``sps_spgemm_pairs_stream``) compute
-  the planned products on CUDA tensors (``spsparse_torch/csrc/spgemm.cu``);
-  on CPU tensors both run the plain version :func:`spgemm_tiled_reference`
+  the planned products on CUDA tensors (``spsparse_torch/csrc/spgemm.cu``:
+  one ``cp.async`` ring, K9 one output tile a CTA, K13 persistent CTAs
+  over pair-balanced tile ranges; each warp skips the chunks in which its
+  share of a tile product is exactly zero); on CPU tensors both run the
+  plain version :func:`spgemm_tiled_reference`
   (gathered pair tiles, a batched float32 product and an ``index_add_``
   into the output tiles, blocked to about 128 MB).
 * :func:`tiled_blocks_to_coo` extracts the nonzero entries on the device.
@@ -30,12 +33,12 @@ sparse set of occupied output tiles:
   (:mod:`.spgemm_window`), the rest through K9.
 
 f32 tiles multiply in true float32 (the JAX package's ``HIGHEST``
-precision), and K13 sums each f32 output element in K9's order, so the two
-agree bit for bit; bf16 products are exact in float32 (K9 widens the tiles,
-K13 multiplies them on the tensor cores). Results accumulate in float32. The operand's device decides between
-kernel and plain version, as everywhere in the port, so there is no
-``use_pallas`` or ``interpret``; ``use_window`` stays, since it chooses
-between two kernels.
+precision), and K8, K9 and K13 sum each f32 output element in one order
+(pairs in plan order, k ascending), so K9 and K13 agree bit for bit; bf16
+tiles multiply on the tensor cores, exact products summed in float32. The
+operand's device decides between kernel and plain version, as everywhere in
+the port, so there is no ``use_pallas`` or ``interpret``; ``use_window``
+stays, since it chooses between two kernels.
 """
 
 from __future__ import annotations
@@ -347,8 +350,9 @@ def _launch(name: str, A: TiledBlocks, B: TiledBlocks,
 
 def spgemm_tiled_pairs(A: TiledBlocks, B: TiledBlocks,
                        plan: TiledGemmPlan) -> TiledBlocks:
-    """The planned products, one output tile per CTA, each tile written
-    once (float32 :class:`TiledBlocks` over the plan's output tiles).
+    """The planned products, one output tile per CTA, its pairs streamed
+    through a ``cp.async`` ring and the tile written once (float32
+    :class:`TiledBlocks` over the plan's output tiles).
 
     CUDA tensors launch kernel K9 (``spgemm_tiled_pairs.launches`` counts
     the launches); CPU tensors take :func:`spgemm_tiled_reference`. An

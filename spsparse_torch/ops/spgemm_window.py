@@ -17,13 +17,15 @@ the band ``(nbr_pad, 2W+1, 128, 128)`` float32, written once per slot.
   kernel.
 * :func:`spgemm_window` launches K8 (``sps_spgemm_window``,
   ``spsparse_torch/csrc/spgemm.cu``) on CUDA tensors; CPU tensors take the
-  plain version :func:`spgemm_window_reference`.
+  plain version :func:`spgemm_window_reference`. K8 walks the band's live
+  pairs slot by slot (:attr:`WindowGemmPlan.slot_pstart`,
+  :func:`band_pair_stream`), one CTA a band slot.
 * :func:`band_to_tiled_blocks` — the band as :class:`TiledBlocks`, with
   sentinel coordinates on the slots that hold no output tile.
 
 The TPU staged a window of ``G + 2W`` operand block rows in VMEM; the
-Hopper kernel reads each slot's pair tiles and lets neighbouring slots
-share them through L2, so ``row_lo``, ``G`` and ``wrows`` stay in the plan
+Hopper kernel streams each slot's pair tiles through a ``cp.async`` ring
+and lets neighbouring slots share them through L2, so ``row_lo``, ``G`` and ``wrows`` stay in the plan
 for parity only. The plan keeps the TPU's routing limits, the VMEM budget
 ``_GEMM_WINDOW_BUDGET`` and the unroll cap ``pmax_cap = 16``, so that both
 packages route a product alike; re-deriving them on the H100 is ROADMAP
@@ -33,6 +35,7 @@ item 16b.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -45,7 +48,8 @@ from .tiled_ops import chunks
 from .tiled_spmm import check_blocks
 
 __all__ = ["WindowGemmPlan", "plan_window_spgemm", "spgemm_window",
-           "spgemm_window_reference", "band_to_tiled_blocks"]
+           "spgemm_window_reference", "band_pair_stream",
+           "band_to_tiled_blocks"]
 
 Tensor = torch.Tensor
 
@@ -106,13 +110,43 @@ class WindowGemmPlan:
         return np.concatenate([[0], np.cumsum(self.pmax_band)])[:-1].astype(
             np.int32)
 
+    @functools.cached_property
+    def _live(self) -> tuple:
+        """``(live, i, j)``: which band slots hold a live pair (``cnt >
+        0``, a block row of the operands, ``j`` inside the band's rows),
+        and each slot's output tile coordinates."""
+        NB = self.nband
+        i = np.repeat(np.arange(self.nbr_pad), NB)
+        j = i + np.tile(np.arange(NB), self.nbr_pad) - self.W
+        live = ((self.cnt.reshape(-1) > 0) & (i < self.nbr) & (j >= 0)
+                & (j < self.nbr))
+        return live, i, j
+
+    @functools.cached_property
+    def _rows_read(self) -> tuple:
+        """Block rows of A and of B that the live slots read."""
+        live, i, j = self._live
+        if not live.any():
+            return 0, 0
+        return int(i[live].max()) + 1, int(j[live].max()) + 1
+
+    @functools.cached_property
+    def slot_pstart(self) -> np.ndarray:
+        """Pair prefix over the band slots (``nbr_pad*NB + 1``, int32):
+        slot ``t``'s pairs are ``slot_pstart[t] .. slot_pstart[t+1]`` of
+        K8's pair stream; a slot with no live pair counts 0."""
+        live = self._live[0]
+        n = np.where(live, self.cnt.reshape(-1), 0)
+        return np.concatenate([[0], np.cumsum(n)]).astype(np.int32)
+
     def tensors(self, device) -> dict:
-        """``cnt``, ``pt``, ``pu`` and ``prefix`` as int32 tensors on
-        ``device``, copied once."""
+        """``cnt``, ``pt``, ``pu``, ``prefix`` and ``slot_pstart`` as
+        int32 tensors on ``device``, copied once."""
         key = str(torch.device(device))
         if key not in self._tensors:
             arrays = {"cnt": self.cnt, "pt": self.pt, "pu": self.pu,
-                      "prefix": self.prefix()}
+                      "prefix": self.prefix(),
+                      "slot_pstart": self.slot_pstart}
             self._tensors[key] = {
                 k: torch.from_numpy(np.ascontiguousarray(v, np.int32)).to(
                     device) for k, v in arrays.items()}
@@ -231,6 +265,23 @@ def _operands(plan: WindowGemmPlan, a_blocks: Tensor,
     return b_blocks
 
 
+def band_pair_stream(plan: WindowGemmPlan) -> tuple:
+    """K8's walk over the band on the host: ``(slot, a_tile, b_tile)``
+    (int64, one entry a live pair), the band slots in order and each slot's
+    pairs ``p < cnt`` in order. ``a_tile``/``b_tile`` index the operands'
+    blocks flattened to ``(nbr*Rt, 128, 128)``: pair ``p`` of slot ``(i,
+    b)`` multiplies ``A[i*rt_a + pt[q]]`` by ``B[j*rt_b + pu[q]]^T``, ``q =
+    i*S + prefix[b] + p``."""
+    sp = plan.slot_pstart.astype(np.int64)
+    slot = np.repeat(np.arange(sp.size - 1), np.diff(sp))
+    p = np.arange(sp[-1]) - sp[slot]
+    i, b = slot // plan.nband, slot % plan.nband
+    q = i * sum(plan.pmax_band) + plan.prefix().astype(np.int64)[b] + p
+    a_tile = i * plan.rt_a + plan.pt[q]
+    b_tile = (i + b - plan.W) * plan.rt_b + plan.pu[q]
+    return slot, a_tile.astype(np.int64), b_tile.astype(np.int64)
+
+
 def spgemm_window_reference(plan: WindowGemmPlan, a_blocks: Tensor,
                             b_blocks: Tensor | None = None) -> Tensor:
     """Plain PyTorch K8: per band offset and chunk of block rows, gather
@@ -292,17 +343,22 @@ def spgemm_window(plan: WindowGemmPlan, a_blocks: Tensor,
                         f"and {b_blocks.dtype}")
     if a_blocks.data_ptr() % 16 or b_blocks.data_ptr() % 16:
         raise ValueError("operand blocks must be 16-byte aligned")
+    rows_a, rows_b = plan._rows_read
+    if a_blocks.shape[0] < rows_a or b_blocks.shape[0] < rows_b:
+        raise ValueError(f"operand blocks have {a_blocks.shape[0]} and "
+                         f"{b_blocks.shape[0]} block rows; the plan reads "
+                         f"{rows_a} and {rows_b}")
     dev = a_blocks.device
     NB = plan.nband
     t = plan.tensors(dev)
     band = torch.empty((plan.nbr_pad, NB, TILE, TILE), dtype=torch.float32,
                        device=dev)
     err = backend.load_kernels().sps_spgemm_window(
-        code, a_blocks.data_ptr(), b_blocks.data_ptr(), t["cnt"].data_ptr(),
-        t["pt"].data_ptr(), t["pu"].data_ptr(), t["prefix"].data_ptr(),
-        plan.nbr_pad * NB, NB, plan.W, sum(plan.pmax_band),
-        a_blocks.shape[0], b_blocks.shape[0], plan.rt_a, plan.rt_b,
-        band.data_ptr(), backend.current_stream(dev))
+        code, a_blocks.data_ptr(), b_blocks.data_ptr(),
+        t["slot_pstart"].data_ptr(), t["pt"].data_ptr(), t["pu"].data_ptr(),
+        t["prefix"].data_ptr(), plan.nbr_pad * NB, NB, plan.W,
+        sum(plan.pmax_band), plan.rt_a, plan.rt_b, band.data_ptr(),
+        backend.current_stream(dev))
     backend.check(err, "sps_spgemm_window")
     spgemm_window.launches += 1
     return band

@@ -6,8 +6,10 @@ in interpret mode, as ``tests/test_spgemm_tiled.py`` and
 ``device="cpu"``, where the kernel wrappers K8, K9 and K13 run their plain
 versions: ``densify_tiled``, ``plan_tiled_spgemm``/``plan_pstart``, the
 pair products, ``plan_window_spgemm``, the band product and
-``band_to_tiled_blocks``, ``tiled_blocks_to_coo``, ``spgemm_tiled`` and its
-routes, ``plan_esc``/``spgemm_planned``, ``best_spgemm``, ``SparseCOO @
+``band_to_tiled_blocks``, K8's slot table and pair stream
+(``slot_pstart``, ``band_pair_stream``), NaN and Inf through the plain K8
+and K9, ``tiled_blocks_to_coo``, ``spgemm_tiled`` and its routes,
+``plan_esc``/``spgemm_planned``, ``best_spgemm``, ``SparseCOO @
 SparseCOO``, ``coo_matrix_power``, and ``chip_smoke.spgemm_path``
 rehearsed on the CPU.
 
@@ -20,6 +22,7 @@ JAX tests' own bound. ``plan_esc(host=True)`` values rtol 1e-6: the JAX
 host path sums duplicates in float64.
 """
 
+import dataclasses
 import importlib
 import unittest.mock as mock
 
@@ -46,6 +49,7 @@ from spsparse_torch.ops.spgemm_tiled import spgemm_tiled as t_tiled
 from spsparse_torch.ops.spgemm_tiled import spgemm_tiled_pairs as t_k9
 from spsparse_torch.ops.spgemm_tiled import spgemm_tiled_stream as t_k13
 from spsparse_torch.ops.spgemm_tiled import tiled_blocks_to_coo as t_to_coo
+from spsparse_torch.ops.spgemm_window import band_pair_stream as t_stream
 from spsparse_torch.ops.spgemm_window import band_to_tiled_blocks as t_b2t
 from spsparse_torch.ops.spgemm_window import plan_window_spgemm as t_wplan
 from spsparse_torch.ops.spgemm_window import spgemm_window as t_k8
@@ -523,3 +527,101 @@ def test_spgemm_path_rehearsal_matches_jax():
     C = state["k8"]["C"]
     assert C.nnz == int(jc.nnz)
     close(dense(C), dense(jc))
+
+
+# ----------------------------------------------------------------------
+# K8 and K9 on one cp.async ring: the host tables that K8 walks, and the
+# non-finite semantics that the kernels' skipping of zero warp blocks keeps
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("key", ["shared", "two_operand", "uneven"])
+def test_window_slot_pstart_matches_jax_cnt(window, key):
+    """``slot_pstart`` is the running sum of the JAX plan's ``cnt`` with
+    dead slots (no pair, a row past A's, a column outside B's) at 0."""
+    case = window[(key, "f32")]
+    jplan, tplan = case["jplan"], case["tplan"]
+    nb = jplan.W * 2 + 1
+    i = np.repeat(np.arange(jplan.nbr_pad), nb)
+    j = i + np.tile(np.arange(nb), jplan.nbr_pad) - jplan.W
+    nbr_a, nbr_b = case["tpa"].tcols.shape[0], case["tpb"].tcols.shape[0]
+    cnt = np.asarray(jplan.cnt).reshape(-1)
+    live = (i < nbr_a) & (j >= 0) & (j < nbr_b)
+    want = np.concatenate([[0], np.cumsum(np.where(live, cnt, 0))])
+    got = tplan.tensors("cpu")["slot_pstart"]
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(tn(got), want)
+    assert int(want[-1]) == tplan.n_live > 0
+    if key == "uneven":
+        assert tplan.nbr_pad > tplan.nbr and not cnt[i >= nbr_a].any()
+
+
+@pytest.mark.parametrize("key,name", [("shared", "f32"), ("shared", "bf16"),
+                                      ("two_operand", "f32"),
+                                      ("uneven", "f32")])
+def test_window_pair_stream_matches_jax_band(window, key, name):
+    """The pair stream K8 walks (``band_pair_stream``), fed through the
+    plain pair product over the flattened ``(nbr*Rt, 128, 128)`` blocks,
+    gives the JAX band in every slot; dead slots exactly zero."""
+    case = window[(key, name)]
+    tplan = case["tplan"]
+    slot, a_tile, b_tile = t_stream(tplan)
+    sp = tplan.slot_pstart
+    np.testing.assert_array_equal(np.bincount(slot, minlength=sp.size - 1),
+                                  np.diff(sp))
+    fa = case["tpa"].blocks.reshape(-1, 128, 128).to(torch.float32)
+    fb = case["tpb"].blocks.reshape(-1, 128, 128).to(torch.float32)
+    band = torch.zeros((sp.size - 1, 128, 128))
+    band.index_add_(0, torch.from_numpy(slot),
+                    fa[a_tile] @ fb[b_tile].transpose(1, 2))
+    band = tn(band).reshape(np.asarray(case["jband"]).shape)
+    close(band, np.asarray(case["jband"]))
+    assert not band.reshape(-1, 128 * 128)[tplan.cnt == 0].any()
+
+
+def plant_nonfinite(blocks, at_inf, at_nan):
+    """A float32 copy of ``blocks`` (flattened to tiles) with an Inf and a
+    NaN planted at ``(tile, row, col)``."""
+    out = blocks.to(torch.float32).numpy().copy()
+    flat = out.reshape(-1, 128, 128)
+    flat[at_inf] = np.inf
+    flat[at_nan] = np.nan
+    return out
+
+
+def same_nonfinite(got, want):
+    """NaN and signed Inf at the same places; finite values within 1e-5."""
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    assert np.isnan(want).any()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_array_equal(np.isposinf(got), np.isposinf(want))
+    np.testing.assert_array_equal(np.isneginf(got), np.isneginf(want))
+    fin = np.isfinite(want)
+    close(got[fin], want[fin])
+
+
+@pytest.mark.parametrize("kernel", ["k8", "k9"])
+def test_plain_versions_keep_nonfinite_like_jax(window, aat, kernel):
+    """An Inf in a B row whose partner A rows are mostly zero, and a NaN:
+    the plain K8 and K9 give NaN (0 * Inf) and Inf where the JAX kernels in
+    interpret mode do. The CUDA kernels' zero-block skipping is held to
+    these plain versions on the card."""
+    if kernel == "k8":
+        case = window[("two_operand", "f32")]
+        tplan = case["tplan"]
+        _, _, b_tile = t_stream(tplan)
+        a_np = case["tpa"].blocks.numpy()
+        b_np = plant_nonfinite(case["tpb"].blocks, (b_tile[0], 7, 11),
+                               (b_tile[-1], 3, 5))
+        got = t_k8(tplan, torch.from_numpy(a_np), torch.from_numpy(b_np))
+        want = j_k8(case["jplan"], jnp.asarray(a_np), jnp.asarray(b_np),
+                    interpret=True)
+        same_nonfinite(tn(got), want)
+        return
+    ta, ja = aat["tt"]["f32"], aat["jt"]["f32"]
+    plan = t_plan(ta, ta, transpose_b=True)
+    b_np = plant_nonfinite(ta.blocks, (int(plan.pb[0]), 7, 11),
+                           (int(plan.pb[-1]), 3, 5))
+    tb = dataclasses.replace(ta, blocks=torch.from_numpy(b_np))
+    jb = dataclasses.replace(ja, blocks=jnp.asarray(b_np))
+    got = t_k9(ta, tb, plan)
+    want = j_k9(ja, jb, aat["jplan"][True], interpret=True)
+    same_nonfinite(tn(got.blocks), want.blocks)

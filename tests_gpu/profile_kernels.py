@@ -12,8 +12,8 @@ pair plans (A A^T, and C C for C = A A^T), and bench config 2c (2**20 rows,
 10 uniform-random columns a row) with its shuffle layout and CSR products
 and the (1024, 64, 128) block sort, as ``chip_smoke.py`` does; runs each
 wrapper (and the library calls and earlier kernel designs, the first SIMT
-body on K6's and K5's tiles and K11's scatter design, that
-``chip_smoke.py`` uses as yardsticks) 10 times under
+bodies of K8 and K9 and K11's scatter design, that ``chip_smoke.py`` uses
+as yardsticks) 10 times under
 ``torch.profiler``, and prints one JSON line per workload: the CUDA kernels
 it ran, their count and device time, and the device time per call. Needs
 one CUDA card.
@@ -42,7 +42,7 @@ from spsparse_torch.ops import (best_spgemm, cg_solve_dia,  # noqa: E402
                                 spmm_dia_mrhs,
                                 spmm_tiled_dense, spmm_tiled_onehot,
                                 spmm_tiled_window, spmv_dia_chain,
-                                spmv_dia_stream, to_tiled_dense)
+                                spmv_dia_stream)
 from spsparse_torch.ops import (csr_products,  # noqa: E402
                                 prepare_shuffle_spmv, segmented_row_sums,
                                 shuffle_gather, sort_blocks, spmv_shuffle)
@@ -87,7 +87,6 @@ def main() -> int:
     X3 = torch.from_numpy(Xh).to(dev)
     w32 = prepare_tiled_window(tl, dtype=torch.float32)
     w16 = prepare_tiled_window(tl, group=cs.WINDOW_GROUP)
-    w32_tiles, w16_tiles = to_tiled_dense(w32), to_tiled_dense(w16)
     d32 = prepare_tiled_dense(tl)
     d16 = prepare_tiled_dense(tl, dtype=torch.bfloat16)
     rows = prepare_tiled_rows(tl)
@@ -145,23 +144,25 @@ def main() -> int:
         "library A_csr @ X.T": lambda: A_csr @ X.T,
         "K5 f32, config 3 (group 16)": lambda: spmm_tiled_window(w32, X3),
         "K5 bf16, config 3 (group 32)": lambda: spmm_tiled_window(w16, X3),
-        "K5 f32, config 3 (group 16), first SIMT body": lambda: cs.simt_body(
-            w32_tiles, X3),
-        "K5 bf16, config 3 (group 32), first SIMT body": lambda: cs.simt_body(
-            w16_tiles, X3),
         "K6 f32, config 3": lambda: spmm_tiled_dense(d32, X3),
         "K6 bf16, config 3": lambda: spmm_tiled_dense(d16, X3),
-        "K6 f32, config 3, first SIMT body": lambda: cs.simt_body(d32, X3),
-        "K6 bf16, config 3, first SIMT body": lambda: cs.simt_body(d16, X3),
         "K7 f32, config 3": lambda: spmm_tiled_onehot(rows, X3),
         "library A3_csr @ X, config 3": lambda: A3_csr @ X3,
         "K7 f32, one_hot route": lambda: spmm_tiled_onehot(pg.prep, Xo),
         "library Ao_csr @ X, one_hot route": lambda: Ao_csr @ Xo,
         "K8 f32, config 4 A A^T band": lambda: spgemm_window(*band["f32"]),
         "K8 bf16, config 4 A A^T band": lambda: spgemm_window(*band["bf16"]),
+        "K8 f32, config 4 A A^T band, first SIMT body": lambda: cs.k8_simt(
+            *band["f32"]),
+        "K8 bf16, config 4 A A^T band, first SIMT body": lambda: cs.k8_simt(
+            *band["bf16"]),
         "K9 f32, config 4 A A^T pairs": lambda: spgemm_tiled_pairs(
             ta["f32"], ta["f32"], plan_t),
         "K9 bf16, config 4 A A^T pairs": lambda: spgemm_tiled_pairs(
+            ta["bf16"], ta["bf16"], plan_t),
+        "K9 f32, config 4 A A^T pairs, first SIMT body": lambda: cs.k9_simt(
+            ta["f32"], ta["f32"], plan_t),
+        "K9 bf16, config 4 A A^T pairs, first SIMT body": lambda: cs.k9_simt(
             ta["bf16"], ta["bf16"], plan_t),
         "K13 f32, config 4 A A^T pairs": lambda: spgemm_tiled_stream(
             ta["f32"], ta["f32"], plan_t),
@@ -170,6 +171,10 @@ def main() -> int:
         "K9 f32, config 4 C C pairs": lambda: spgemm_tiled_pairs(
             tc["f32"], tc["f32"], plan_n),
         "K9 bf16, config 4 C C pairs": lambda: spgemm_tiled_pairs(
+            tc["bf16"], tc["bf16"], plan_n),
+        "K9 f32, config 4 C C pairs, first SIMT body": lambda: cs.k9_simt(
+            tc["f32"], tc["f32"], plan_n),
+        "K9 bf16, config 4 C C pairs, first SIMT body": lambda: cs.k9_simt(
             tc["bf16"], tc["bf16"], plan_n),
         "K13 f32, config 4 C C pairs": lambda: spgemm_tiled_stream(
             tc["f32"], tc["f32"], plan_n),

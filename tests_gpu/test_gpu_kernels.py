@@ -13,7 +13,9 @@ CG iterations against its plain version and the composed solve over K1
 (tiled general SpMM) and K8, K9, K13 (tiled SpGEMM): float32 rtol 1e-5
 with atol 1e-5 of max|ref|; bfloat16 blocks atol 1e-4 of max|ref| (exact
 products, float32 sums in another order); gradients rtol/atol 1e-4;
-float32 K13 equal to K9 bit for bit (the same sum order). K10
+float32 K8, K9 and K13 equal bit for bit to each other and to the first
+SIMT bodies of K8 and K9 (the same sum order; a skipped chunk adds only
+exact zeros); NaN and Inf exactly where the plain version has them. K10
 rtol/atol 1e-5 (another sum order); K11's slot grid bit for bit (one
 multiply a slot, the same slots as the plain sort pipeline), its SpMV
 rtol 1e-5 against the plain version and float64; K12 keys exact, payloads
@@ -26,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 import spsparse_torch.ops.dia_stream as dia_stream_mod
 from spsparse_torch.convert import dia_from_numpy
 from spsparse_torch.ops import (best_spmv, cg_solve_dia,
@@ -573,6 +576,9 @@ def test_k8_matches_plain_dead_slots_zero(dtype, case):
     assert not bool(band.reshape(-1, 128 * 128)[dead].any())
     assert torch.equal(band, spgemm_window(
         plan, pa.blocks, None if plan.shared else pb.blocks))
+    if dtype == "float32":      # the first body's sum order
+        assert torch.equal(band, chip_smoke.k8_simt(plan, pa.blocks,
+                                                    pb.blocks))
 
 
 def pair_operands(dev, kind, transpose_b, dt):
@@ -629,9 +635,11 @@ def test_k9_k13_match_plain(dtype, transpose_b, kind):
                                    **_scaled(_tol(dtype), ref))
         outs.append(out.blocks)
     torch.testing.assert_close(outs[1], outs[0], **_scaled(_tol(dtype), ref))
-    if dtype == "float32":      # K13 sums in K9's order
+    if dtype == "float32":      # K13 and the first K9 sum in K9's order
         assert torch.equal(outs[1], outs[0])
+        assert torch.equal(chip_smoke.k9_simt(ta, tb, plan), outs[0])
     assert torch.equal(spgemm_tiled_stream(ta, tb, plan).blocks, outs[1])
+    assert torch.equal(spgemm_tiled_pairs(ta, tb, plan).blocks, outs[0])
 
 
 def diagonal_pair_operands(dev, n, transpose_b, dt, seed):
@@ -691,11 +699,12 @@ def with_empty_tiles(plan, at):
 @pytest.mark.parametrize("transpose_b", [False, True])
 @pytest.mark.parametrize("n", [1, 261, 2000])
 def test_k13_ring_tile_counts(dtype, transpose_b, n):
-    """K13's persistent CTAs over fewer output tiles than resident CTAs
-    (4), about as many (264: two CTAs on each of 132 SMs) and more (2003),
-    with tiles of no pairs first, in the middle and last (stored as exact
-    zeros over a NaN-filled allocation); float32 equal to K9 bit for bit,
-    and two calls bit-identical."""
+    """K13's persistent CTAs and K9's one CTA a tile over fewer output
+    tiles than resident CTAs (4), about as many (264: two CTAs on each of
+    132 SMs) and more (2003), with tiles of no pairs first, in the middle
+    and last (stored as exact zeros over a NaN-filled allocation); float32
+    K9 and K13 equal to each other and to the first K9 bit for bit, and two
+    calls bit-identical."""
     from spsparse_torch.ops import (plan_tiled_spgemm, spgemm_tiled_pairs,
                                     spgemm_tiled_reference,
                                     spgemm_tiled_stream)
@@ -716,8 +725,105 @@ def test_k13_ring_tile_counts(dtype, transpose_b, n):
     torch.testing.assert_close(got, ref, **_scaled(_tol(dtype), ref))
     assert not bool(got[torch.from_numpy(empty).to(dev)].any())
     assert torch.equal(spgemm_tiled_stream(A, B, plan).blocks, got)
+    dirty_cache(dev, plan.n_out_tiles * 128 * 128 * 4)
+    before = spgemm_tiled_pairs.launches
+    k9 = spgemm_tiled_pairs(A, B, plan).blocks
+    torch.cuda.synchronize()
+    assert spgemm_tiled_pairs.launches == before + 1
+    torch.testing.assert_close(k9, ref, **_scaled(_tol(dtype), ref))
+    assert not bool(k9[torch.from_numpy(empty).to(dev)].any())
     if dtype == "float32":
-        assert torch.equal(spgemm_tiled_pairs(A, B, plan).blocks, got)
+        assert torch.equal(k9, got)
+        assert torch.equal(chip_smoke.k9_simt(A, B, plan), got)
+
+
+def nonfinite_tiles(dt):
+    """Two pairs of 128 x 128 tiles (A0, A1; B0, B1 as n x k rows) built so
+    that each warp's skip test meets every case: A0's rows 0-63 are zero
+    and meet an Inf in B0 (row 5, k 3: NaN must come out, not 0); B1's rows
+    0-63 are zero and meet an Inf in A1 (row 10, k 20: NaN again); B1 holds
+    a NaN (row 100, k 50); everywhere else a zero warp block meets finite
+    values, whose output is an exact zero. Values uniform(0.5, 1)."""
+    rng = np.random.default_rng(41)
+    a0, a1, b0, b1 = (rng.uniform(0.5, 1, (128, 128)).astype(np.float32)
+                      for _ in range(4))
+    a0[:64] = 0
+    b1[:64] = 0
+    b0[5, 3] = np.inf
+    a1[10, 20] = np.inf
+    b1[100, 50] = np.nan
+    return [torch.from_numpy(v).to(dt) for v in (a0, a1, b0, b1)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kernel", ["k8", "k9_ab", "k9_abt", "k13_ab",
+                                    "k13_abt"])
+def test_spgemm_skip_keeps_nonfinite_and_zeros(dtype, kernel):
+    """One output tile of two pairs (:func:`nonfinite_tiles`) through K8,
+    K9 and K13: NaN and Inf exactly where the plain version (on the CPU)
+    has them, exact zeros where its sum is zero, the rest within the
+    tolerance of the type."""
+    import importlib
+
+    from spsparse_torch.ops import (plan_tiled_spgemm, plan_window_spgemm,
+                                    spgemm_tiled_pairs,
+                                    spgemm_tiled_reference,
+                                    spgemm_tiled_stream, spgemm_window,
+                                    spgemm_window_reference)
+
+    dev = _cuda()
+    dt = getattr(torch, dtype)
+    a0, a1, b0, b1 = nonfinite_tiles(dt)
+    if kernel == "k8":
+        tcols = torch.tensor([[0, 1]], dtype=torch.int32)
+        plan = plan_window_spgemm(tcols, tcols, nbc=2, out_shape=(128, 128),
+                                  dtype=dt)
+        assert plan.n_live == 2 and plan.nband == 1
+        ab = torch.stack([a0, a1])[None]
+        bb = torch.stack([b0, b1])[None]
+        ref = spgemm_window_reference(plan, ab, bb)[0, 0]
+        got = spgemm_window(plan, ab.to(dev), bb.to(dev))[0, 0].cpu()
+    else:
+        tb_cls = importlib.import_module(
+            "spsparse_torch.ops.spgemm_tiled").TiledBlocks
+        transpose_b = kernel.endswith("abt")
+        i32 = dict(dtype=torch.int32)
+        A = tb_cls(tile_row=torch.tensor([0, 0], **i32),
+                   tile_col=torch.tensor([0, 1], **i32),
+                   blocks=torch.stack([a0, a1]), shape=(128, 256))
+        if transpose_b:
+            B = tb_cls(tile_row=torch.tensor([0, 0], **i32),
+                       tile_col=torch.tensor([0, 1], **i32),
+                       blocks=torch.stack([b0, b1]), shape=(128, 256))
+        else:
+            B = tb_cls(tile_row=torch.tensor([0, 1], **i32),
+                       tile_col=torch.tensor([0, 0], **i32),
+                       blocks=torch.stack([b0.T, b1.T]).contiguous(),
+                       shape=(256, 128))
+        plan = plan_tiled_spgemm(A, B, transpose_b=transpose_b)
+        assert plan.n_pairs == 2 and plan.n_out_tiles == 1
+        ref = spgemm_tiled_reference(A, B, plan).blocks[0]
+
+        def on(tb):
+            return tb_cls(tile_row=tb.tile_row.to(dev),
+                          tile_col=tb.tile_col.to(dev),
+                          blocks=tb.blocks.to(dev), shape=tb.shape)
+
+        fn = spgemm_tiled_pairs if kernel.startswith("k9") else \
+            spgemm_tiled_stream
+        got = fn(on(A), on(B), plan).blocks[0].cpu()
+    nan = torch.isnan(ref)
+    assert bool(nan[:64, 5].all()) and bool(nan[10, :64].all())
+    assert bool(nan[:, 100].all()) and bool((ref[:64, :64] == 0).sum() > 0)
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(torch.isinf(got) & (got > 0), torch.isinf(ref)
+                       & (ref > 0))
+    assert torch.equal(torch.isinf(got) & (got < 0), torch.isinf(ref)
+                       & (ref < 0))
+    assert bool((got[ref == 0] == 0).all())
+    fin = torch.isfinite(ref)
+    torch.testing.assert_close(got[fin], ref[fin],
+                               **_scaled(_tol(dtype), ref[fin]))
 
 
 def test_spgemm_cuda_tensors_never_reach_plain_versions(monkeypatch):
