@@ -54,10 +54,14 @@ from ``default_rng(0)``):
     on ``prepare_tiled_dense`` (float32, bfloat16), against its plain
     version, against K5 and against the float64 scipy rows.
 14. K7: ``spmm_tiled_onehot`` on ``prepare_tiled_rows`` of the same tiles,
-    against its plain version and K6; a one-hot-tier matrix (40-48 entries
-    in the diagonal tile of each block row) through ``prepare_general``
-    (route ``one_hot``); bench config 3b's scattered matrix (route
-    ``gather_ell``) against scipy.
+    against its plain version and K6, and on the same layout with each
+    tile's slots shuffled (no tile in row order); two one-hot-tier
+    matrices through ``prepare_general`` (route ``one_hot``; 40-48 entries
+    in the diagonal tile of each block row, and 8 tiles of 40-48 entries a
+    block row, past one 256-slot piece) against scipy; bench config 3b's
+    scattered matrix (route ``gather_ell``) against scipy. On all four K7
+    layouts the kernel must equal its first SIMT body
+    (``sps_tiled_onehot_simt``) and a second call bit for bit.
 15. One backward through ``spmm_general`` on the dense-window layout at
     2**13 rows, against the plain backward on the CPU.
 
@@ -105,22 +109,28 @@ columns a row, values uniform(-1, 1), x uniform(-1, 1), all from
     shared-memory chunk), float32 keys (with ties, -0.0 and infinities) and
     ten arrays (keys through K12 with a position payload, then a gather);
     ``sort_blocks_stable`` packed and not. Keys exact, payloads exact when
-    stable and otherwise as a multiset within each run of equal keys.
+    stable and otherwise as a multiset within each run of equal keys; on
+    all six shapes, keys and payloads equal to K12's first body
+    (``sps_block_sort_simt``, dispatched alike) bit for bit.
 25. Time every kernel against its plain version (CUDA events, in turns:
     plain, kernel, kernel, plain), and one PyTorch library call computing
     the same function where there is one (``torch.sparse_csr_tensor``
     products; none for K4, whose solve is no single library call). K7 is
-    timed on config 3's tiles and on the one_hot route's layout of phase
-    14, the traffic ``prepare_general`` sends it. K8, K9 and K13 at config
+    timed on the four layouts of phase 14: config 3's tiles, sorted and
+    shuffled, and the two one_hot route layouts, the traffic
+    ``prepare_general`` sends it. K8, K9 and K13 at config
     4, with cuSPARSE's CSR x CSR SpGEMM as the yardstick; ``spgemm_tiled``
     end to end, the ESC ``spgemm_aat`` and the planned apply. K10 and K11
     at config 2c against cuSPARSE's CSR SpMV, with ``spmv_shuffle`` and
     ``spmv_csr_segsum`` end to end in nnz/s; K12 against ``torch.sort``
     carrying the payload through ``gather``. K8, K9 and K11 are also timed
-    against their earlier designs (the first SIMT bodies of K8 and K9;
-    K11's scatter design), kept in the kernel library as yardsticks and
-    called only here and in ``tests_gpu/profile_kernels.py``, and K13
-    against K9 in turns. K8, K9 and K13 carry two bounds: the dense one
+    against their earlier designs (the first SIMT bodies of K7, K8, K9
+    and K12; K11's scatter design), kept in the kernel library as
+    yardsticks and called only here and in ``tests_gpu/``, and K13 against
+    K9 in turns. K10's library call is ``torch.segment_reduce`` of the
+    same products by the row pointer (cuSPARSE's whole CSR SpMV beside
+    it). The K7 and K12 rows carry ptxas's registers and spill bytes for
+    their kernels. K8, K9 and K13 carry two bounds: the dense one
     (every tile product whole) and the occupied one (``bound_ms``: only
     the (warp block, k-chunk) units whose two sides hold a nonzero, which
     is the work the kernels cannot skip).
@@ -136,6 +146,8 @@ from __future__ import annotations
 
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -785,6 +797,26 @@ def onehot_entries(m: int, seed: int = 5):
     return r, r.copy(), rng.uniform(-1, 1, r.size).astype(np.float32)
 
 
+def onehot_tiles_entries(m: int, tiles: int = 8, seed: int = 7):
+    """A one-hot-tier matrix of several live tiles a block row: ``tiles``
+    distinct random block columns a block row, 40-48 entries at random
+    (row, column) offsets in each (duplicates summed), values
+    uniform(-1, 1); rt * cap > 256 slots a block row, so that K7 takes a
+    block row in several pieces."""
+    rng = np.random.default_rng(seed)
+    nbr = -(-m // 128)
+    nbc = nbr
+    bc = np.argsort(rng.random((nbr, nbc)), axis=1)[:, :tiles]
+    k = rng.integers(40, 49, (nbr, tiles))
+    tile_of = np.repeat(np.arange(nbr * tiles), k.ravel())
+    br, tc = tile_of // tiles, bc.ravel()[tile_of]
+    r = br * 128 + rng.integers(0, 128, tile_of.size)
+    c = tc * 128 + rng.integers(0, 128, tile_of.size)
+    keep = (r < m) & (c < m)
+    r, c = r[keep], c[keep]
+    return r, c, rng.uniform(-1, 1, r.size).astype(np.float32)
+
+
 def cfg3b_entries(m: int, seed: int = 0):
     """Bench config 3b (``bench.py:config3b_packed_general``): 8 uniform
     random columns a row of 8m, values uniform(-1, 1), then X of 128
@@ -798,9 +830,25 @@ def cfg3b_entries(m: int, seed: int = 0):
     return rr, cc, vals, X
 
 
+def unsorted_tiles(torch, prep, seed: int = 9):
+    """``prep`` (a ``PreparedTiledRows``) with each tile's slots (row,
+    column and value together) in a random order: the same product, with
+    no tile's entries in row order."""
+    import dataclasses
+
+    dev = prep.vals.device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    perm = torch.rand(tuple(prep.vals.shape), generator=g,
+                      device=dev).argsort(dim=-1)
+    return dataclasses.replace(prep, rows=prep.rows.gather(2, perm),
+                               cols=prep.cols.gather(2, perm),
+                               vals=prep.vals.gather(2, perm))
+
+
 def phase_onehot(torch, sp, dev, reg, dense, m_onehot, m_3b):
-    """Phase 14: K7 on config 3's tiles; the one_hot and gather_ell
-    routes of prepare_general."""
+    """Phase 14: K7 on config 3's tiles, as built (each tile's entries in
+    row order) and with each tile's slots shuffled; the one_hot and
+    gather_ell routes of prepare_general."""
     from spsparse_torch.ops import (prepare_general, prepare_tiled_rows,
                                     spmm_general, spmm_tiled_onehot,
                                     spmm_tiled_onehot_reference)
@@ -812,23 +860,38 @@ def phase_onehot(torch, sp, dev, reg, dense, m_onehot, m_3b):
     err = check_pair(Y, spmm_tiled_onehot_reference(prep, X),
                      "K7 vs plain", False)
     err = max(err, check_pair(Y, dense["Y_f32"], "K7 vs K6 f32", False))
-
-    r, c, v = onehot_entries(m_onehot)
-    pg = prepare_general(build_coo(sp, dev, (m_onehot, m_onehot), r, c, v))
-    require(pg.kernel == "one_hot",
-            f"the one-hot-tier matrix routed to {pg.kernel}")
-    Xo = np.random.default_rng(6).uniform(-1, 1, (m_onehot, SPMM_N)).astype(
-        np.float32)
-    Xo_dev = torch.from_numpy(Xo).to(dev)
-    Xo_p = Xo_dev if pg.order is None else Xo_dev[pg.order]
-    Yo = spmm_general(pg, Xo_dev)
+    # The card's K7 against its first body and a second call, bit for bit
+    # (on the CPU both sides would be the plain version).
+    on_card = dev != "cpu"
+    bitwise = {}
+    if on_card:
+        bitwise["config 3"] = (
+            bitwise_equal(torch, Y, k7_simt(prep, X))
+            and bitwise_equal(torch, Y, spmm_tiled_onehot(prep, X)))
+        require(bitwise["config 3"], "K7 at config 3 differs from its first "
+                "body or from a second call, bit for bit")
+    unsorted = unsorted_tiles(torch, prep)
+    Yu = spmm_tiled_onehot(unsorted, X)
     sync(torch, dev)
-    err_k = check_pair(Yo, spmm_tiled_onehot_reference(pg.prep, Xo_p),
-                       "K7 (one_hot route) vs plain", False)
-    ok, err_o = close(Yo.cpu().numpy(), csr_host(r, c, v, (m_onehot,
-                                                           m_onehot)) @ Xo,
-                      1e-5, 1e-5)
-    require(ok, f"one_hot route off scipy (max abs err {err_o})")
+    err = max(err, check_pair(Yu, Y, "K7 on unsorted tiles vs sorted",
+                              False))
+    if on_card:
+        bitwise["config 3, rows unsorted"] = (
+            bitwise_equal(torch, Yu, k7_simt(unsorted, X))
+            and bitwise_equal(torch, Yu, spmm_tiled_onehot(unsorted, X)))
+        require(bitwise["config 3, rows unsorted"], "K7 on config 3's "
+                "unsorted tiles differs from its first body or from a "
+                "second call, bit for bit")
+
+    route = {}
+    for what, entries in (("one_hot route", onehot_entries(m_onehot)),
+                          ("one_hot route, 8 tiles a block row",
+                           onehot_tiles_entries(m_onehot))):
+        route[what] = onehot_route(torch, sp, dev, m_onehot, entries, what)
+        if on_card:
+            bitwise[what] = route[what]["bitwise"]
+    require(route["one_hot route, 8 tiles a block row"]["slots"] > 256,
+            "the several-tile one_hot layout fits one 256-slot piece")
 
     rr, cc, vals, X3 = cfg3b_entries(m_3b)
     pg3 = prepare_general(build_coo(sp, dev, (m_3b, 8 * m_3b), rr, cc,
@@ -840,11 +903,46 @@ def phase_onehot(torch, sp, dev, reg, dense, m_onehot, m_3b):
     ok, err_3b = close(Y3.cpu().numpy(), csr_host(
         rr, cc, vals, (m_3b, 8 * m_3b)) @ X3, 1e-5, 1e-5)
     require(ok, f"gather_ell route off scipy (max abs err {err_3b})")
-    return {"prep": prep, "err": err, "err_onehot_route": err_o,
-            "err_gather_ell": err_3b, "onehot_tiles": pg.prep.nbr,
-            "ell_kmax": pg3.prep.cols.shape[1], "route": {
-                "prep": pg.prep, "X": Xo_dev, "Xp": Xo_p, "entries": (r, c, v),
-                "m": m_onehot, "err": err_k}}
+    return {"prep": prep, "unsorted": unsorted, "err": err,
+            "err_gather_ell": err_3b,
+            "bitwise_k7_simt": bitwise, "ell_kmax": pg3.prep.cols.shape[1],
+            "route": route}
+
+
+def onehot_route(torch, sp, dev, m, entries, what):
+    """``prepare_general`` of a one-hot-tier matrix (it must route to K7)
+    and its product: against the plain version and scipy, and on the card
+    against K7's first body and a second call, bit for bit."""
+    from spsparse_torch.ops import (prepare_general, spmm_general,
+                                    spmm_tiled_onehot,
+                                    spmm_tiled_onehot_reference)
+
+    r, c, v = entries
+    pg = prepare_general(build_coo(sp, dev, (m, m), r, c, v))
+    require(pg.kernel == "one_hot", f"the {what} matrix routed to {pg.kernel}")
+    Xo = np.random.default_rng(6).uniform(-1, 1, (m, SPMM_N)).astype(
+        np.float32)
+    Xo_dev = torch.from_numpy(Xo).to(dev)
+    Xo_p = Xo_dev if pg.order is None else Xo_dev[pg.order]
+    Yo = spmm_general(pg, Xo_dev)
+    sync(torch, dev)
+    err_k = check_pair(Yo, spmm_tiled_onehot_reference(pg.prep, Xo_p),
+                       f"K7 ({what}) vs plain", False)
+    bitwise = None
+    if dev != "cpu":
+        Yk = spmm_tiled_onehot(pg.prep, Xo_p)
+        bitwise = (bitwise_equal(torch, Yk, k7_simt(pg.prep, Xo_p))
+                   and bitwise_equal(torch, Yk,
+                                     spmm_tiled_onehot(pg.prep, Xo_p)))
+        require(bitwise, f"K7 on the {what} differs from its first body or "
+                "from a second call, bit for bit")
+    ok, err_o = close(Yo.cpu().numpy(), csr_host(r, c, v, (m, m)) @ Xo,
+                      1e-5, 1e-5)
+    require(ok, f"{what} off scipy (max abs err {err_o})")
+    return {"prep": pg.prep, "X": Xo_dev, "Xp": Xo_p, "entries": (r, c, v),
+            "m": m, "err": err_k, "err_scipy": err_o, "bitwise": bitwise,
+            "block_rows": pg.prep.nbr,
+            "slots": pg.prep.tiles_per_row * pg.prep.tile_cap}
 
 
 def phase_grad(torch, sp, dev, m):
@@ -899,11 +997,13 @@ def spmm_path(torch, sp, dev, m=SPMM_M, m_onehot=SPMM_M, m_3b=CFG3B_M,
         f"({time.perf_counter() - t0:.3f} s)")
     t0 = time.perf_counter()
     onehot = phase_onehot(torch, sp, dev, reg, dense, m_onehot, m_3b)
-    log(f"phase 14 K7: max abs err {onehot['err']!r}; one_hot route over "
-        f"{onehot['onehot_tiles']} block rows err "
-        f"{onehot['err_onehot_route']!r}; gather_ell route (Kmax "
-        f"{onehot['ell_kmax']}) err {onehot['err_gather_ell']!r} "
-        f"({time.perf_counter() - t0:.3f} s)")
+    routes = {what: {k: rt[k] for k in ("block_rows", "slots", "err_scipy")}
+              for what, rt in onehot["route"].items()}
+    log(f"phase 14 K7: max abs err {onehot['err']!r}; bit for bit with its "
+        f"first body and a second call {onehot['bitwise_k7_simt']}; one_hot "
+        f"routes (block rows, slots a block row, err vs scipy) {routes}; "
+        f"gather_ell route (Kmax {onehot['ell_kmax']}) err "
+        f"{onehot['err_gather_ell']!r} ({time.perf_counter() - t0:.3f} s)")
     t0 = time.perf_counter()
     grad_err = phase_grad(torch, sp, dev, m_grad)
     log(f"phase 15 spmm_general backward at m = {m_grad}: max abs err "
@@ -1351,6 +1451,7 @@ def phase_sort(torch, dev, nblk):
     keys and ten arrays."""
     from spsparse_torch.ops import (sort_blocks, sort_blocks_reference,
                                     sort_blocks_stable)
+    from spsparse_torch.ops.block_sort import MAX_ARRAYS, block_sort_geometry
 
     rng = np.random.default_rng(12)
 
@@ -1379,12 +1480,25 @@ def phase_sort(torch, dev, nblk):
              ("ten arrays", (ints(16, (nb8, 16, 128)),
                              t(float_keys(rng, (nb8, 16, 128))))
               + tuple(floats((nb8, 16, 128)) for _ in range(8)), 2)]
+    bitwise, geometry = {}, {}
     for what, arrays, nk in cases:
         dirty_cache(torch, dev, sum(a.numel() for a in arrays) * 4)
         got = sort_blocks(arrays, num_keys=nk)
         ref = sort_blocks_reference(arrays, num_keys=nk)
         sync(torch, dev)
         same_up_to_ties(torch, got, ref, nk, what)
+        if dev != "cpu":
+            bitwise[what] = bitwise_equal(torch, got, k12_simt(arrays, nk))
+            require(bitwise[what], f"K12 {what}: differs from its first body "
+                    "bit for bit (keys or payloads)")
+            # The arrays K12 sorts: these, or the keys and a position.
+            na = (len(arrays) if len(arrays) <= MAX_ARRAYS and all(
+                a.dtype == torch.int32 for a in arrays[:nk]) else nk + 1)
+            n = arrays[0][0].numel()
+            geometry[what] = k12_geometry(n, na, nk)
+            require(geometry[what] == block_sort_geometry(n, na, nk),
+                    f"K12 {what}: the kernel's chunk {geometry[what]} is not "
+                    "block_sort_geometry's")
     kk, pay = ints(8, (nblk // 4, 8, 128)), floats((nblk // 4, 8, 128))
     ref = sort_blocks_reference((kk, pay))
     for bound in (8, None):
@@ -1393,7 +1507,8 @@ def phase_sort(torch, dev, nblk):
         require(all(torch.equal(a, b) for a, b in zip(got, ref)),
                 f"K12 sort_blocks_stable (key_bound {bound}) is not the "
                 "stable sort")
-    return {"main": main, "cases": [c[0] for c in cases]}
+    return {"main": main, "cases": [c[0] for c in cases],
+            "bitwise_k12_simt": bitwise, "geometry": geometry}
 
 
 def unstructured_path(torch, sp, dev, n=N, heavy_n=HEAVY_N,
@@ -1422,7 +1537,10 @@ def unstructured_path(torch, sp, dev, n=N, heavy_n=HEAVY_N,
     t0 = time.perf_counter()
     srt = phase_sort(torch, dev, sort_nblk)
     log(f"phase 24 K12: {srt['cases']}, stable packed and not: keys exact, "
-        f"payloads by runs ({time.perf_counter() - t0:.3f} s)")
+        f"payloads by runs; bit for bit with its first body "
+        f"{srt['bitwise_k12_simt']}; (C, E, threads) as the kernel reports "
+        f"them, equal to block_sort_geometry's {srt['geometry']} "
+        f"({time.perf_counter() - t0:.3f} s)")
     return {"c2": c2, "shuffle": sh, "segsum": seg, "sort": srt}
 
 
@@ -1541,6 +1659,86 @@ def k9_simt(A, B, plan):
     return out
 
 
+def k7_simt(prep, X):
+    """The first K7 (``sps_tiled_onehot_simt``: one CTA of 64 threads a
+    block row and 64 columns, the Y tile in shared memory, X read from
+    device memory entry by entry) on the arguments of
+    ``spmm_tiled_onehot``: the timing yardstick and the bit-for-bit
+    reference of the staged kernel. Used nowhere in the port."""
+    import torch
+    from spsparse_torch import backend
+
+    M = prep.shape[0]
+    K, N = X.shape
+    Y = torch.empty((M, N), dtype=torch.float32, device=X.device)
+    err = backend.load_kernels().sps_tiled_onehot_simt(
+        prep.tcols.data_ptr(), prep.rows.data_ptr(), prep.cols.data_ptr(),
+        prep.vals.data_ptr(), -(-M // TILE_SIDE), prep.tiles_per_row,
+        prep.tile_cap, prep.nbc, X.data_ptr(), K, N, Y.data_ptr(), M,
+        backend.current_stream(X.device))
+    backend.check(err, "sps_tiled_onehot_simt")
+    return Y
+
+
+def k12_geometry(n: int, n_arrays: int, num_keys: int) -> tuple:
+    """``(C, E, threads)`` that ``sps_block_sort`` launches for blocks of
+    ``n`` elements, as the library reports them
+    (``sps_block_sort_geometry``): what the host replay's
+    ``block_sort_geometry`` must equal."""
+    import ctypes
+
+    from spsparse_torch import backend
+
+    out = (ctypes.c_longlong * 3)()
+    backend.check(backend.load_kernels().sps_block_sort_geometry(
+        n_arrays, num_keys, n, ctypes.cast(out, ctypes.c_void_p)),
+        "sps_block_sort_geometry")
+    return tuple(int(v) for v in out)
+
+
+def k12_simt(arrays, num_keys: int):
+    """The first K12 (``sps_block_sort_simt``: every stage in shared
+    memory, a barrier after each) dispatched as ``sort_blocks`` dispatches
+    K12 (float32 keys and more than 8 arrays through a position payload
+    and a gather): the timing yardstick and the bit-for-bit reference of
+    the register kernel. Used nowhere in the port."""
+    import ctypes
+
+    import torch
+    from spsparse_torch import backend
+    from spsparse_torch.ops.block_sort import MAX_ARRAYS, sort_by_permutation
+
+    def launch(arrs, nk):
+        nblk, R, Lx = arrs[0].shape
+        ins = [a.contiguous() for a in arrs]
+        outs = [torch.empty_like(a) for a in ins]
+        ip = (ctypes.c_void_p * len(ins))(*[a.data_ptr() for a in ins])
+        op = (ctypes.c_void_p * len(outs))(*[a.data_ptr() for a in outs])
+        err = backend.load_kernels().sps_block_sort_simt(
+            ctypes.cast(ip, ctypes.c_void_p), ctypes.cast(op, ctypes.c_void_p),
+            len(ins), nk, nblk, R * Lx, backend.current_stream(ins[0].device))
+        backend.check(err, "sps_block_sort_simt")
+        return tuple(outs)
+
+    arrays = tuple(arrays)
+    if (all(a.dtype == torch.int32 for a in arrays[:num_keys])
+            and len(arrays) <= MAX_ARRAYS
+            and all(a.element_size() == 4 for a in arrays)):
+        return launch(arrays, num_keys)
+    return sort_by_permutation(arrays, num_keys, launch)
+
+
+def bitwise_equal(torch, got, want) -> bool:
+    """Two tuples of tensors (or two tensors) equal bit for bit."""
+    if isinstance(got, torch.Tensor):
+        got, want = (got,), (want,)
+    return len(got) == len(want) and all(
+        g.dtype == w.dtype and g.shape == w.shape
+        and torch.equal(g.view(torch.int32) if g.element_size() == 4 else g,
+                        w.view(torch.int32) if w.element_size() == 4 else w)
+        for g, w in zip(got, want))
+
+
 def k11_pr5(prep, x):
     """PR 5's K11 (``sps_shuffle_gather_scatter``: each gather slot's
     product stored straight to its ELL slot, from the column-block ordered
@@ -1575,8 +1773,9 @@ def tile_counts(torch, prep) -> tuple[int, int]:
 
 
 def spmm_timings(torch, spmm, launches: dict) -> list[dict]:
-    """Rows of the kernels line for K5, K6 and K7 at config 3, and for K7
-    on the one_hot route's layout (the traffic prepare_general sends it):
+    """Rows of the kernels line for K5, K6 and K7 at config 3 (K7 also on
+    its tiles shuffled), and for K7 on the two one_hot route layouts (the
+    traffic prepare_general sends it):
     kernel and plain version in turns, the bound from each timed layout,
     and one ``torch.sparse_csr_tensor`` product as the library yardstick.
 
@@ -1594,7 +1793,6 @@ def spmm_timings(torch, spmm, launches: dict) -> list[dict]:
     reg, win, dense = spmm["reg"], spmm["win"], spmm["dense"]
     X, m = reg["X"], reg["m"]
     nnz = reg["entries"][0].size
-    route = spmm["onehot"]["route"]
 
     def library_ms(entries, shape, Xl):
         A_csr = library_csr_of(torch, *entries, shape, Xl.device)
@@ -1602,8 +1800,6 @@ def spmm_timings(torch, spmm, launches: dict) -> list[dict]:
                                        inner=5)))
 
     lib_ms = library_ms(reg["entries"], (m, 2 * m), X)
-    route_lib_ms = library_ms(route["entries"], (route["m"], route["m"]),
-                              route["X"])
     kw = dict(reps=5, inner=3, warmup=2)
     rows = []
 
@@ -1615,7 +1811,13 @@ def spmm_timings(torch, spmm, launches: dict) -> list[dict]:
         n_rhs = Xk.shape[1]
         x_bytes = occupied * TILE_SIDE * n_rhs * item
         y_bytes = prep.shape[0] * n_rhs * 4
+        extra = {}
         if name == "spmm_tiled_onehot":
+            # The first SIMT body in turns with the staged kernel.
+            extra["ms_again"], extra["prior_design_ms"] = compare_times(
+                torch, lambda: kernel(prep, Xk), lambda: k7_simt(prep, Xk),
+                **timing_kw)
+            extra["ptxas"] = ptxas_of(("onehot_kernel", "onehot_small"))
             # Every slot's value of the live tiles (a padding slot is known
             # only by its zero value), each entry's row and column, and the
             # X rows the entries name (an entry product needs no whole X
@@ -1637,7 +1839,7 @@ def spmm_timings(torch, spmm, launches: dict) -> list[dict]:
                          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                          library_ms=lib, matrix=matrix, n=prep.shape[0],
                          nnz=nnz, live_tiles=live,
-                         occupied_column_blocks=occupied))
+                         occupied_column_blocks=occupied, **extra))
 
     c3 = "config 3"
     add("spmm_tiled_window", "f32", c3 + " (prepare_general)",
@@ -1652,14 +1854,19 @@ def spmm_timings(torch, spmm, launches: dict) -> list[dict]:
         add("spmm_tiled_dense", dname, c3, dense[dname], X,
             spmm_tiled_dense, spmm_tiled_dense_reference, item, rate,
             dense["err"][dname], lib_ms, nnz)
-    add("spmm_tiled_onehot", "f32", c3, spmm["onehot"]["prep"], X,
-        spmm_tiled_onehot, spmm_tiled_onehot_reference, 4, F32_FLOPS_PER_S,
-        spmm["onehot"]["err"], lib_ms, nnz,
-        timing_kw=dict(reps=3, inner=2, warmup=1))
-    add("spmm_tiled_onehot", "f32", "one_hot route", route["prep"],
-        route["Xp"], spmm_tiled_onehot, spmm_tiled_onehot_reference, 4,
-        F32_FLOPS_PER_S, route["err"], route_lib_ms,
-        int(route["entries"][0].size))
+    for what, key in ((c3, "prep"),
+                      (c3 + ", rows unsorted within tiles", "unsorted")):
+        add("spmm_tiled_onehot", "f32", what, spmm["onehot"][key], X,
+            spmm_tiled_onehot, spmm_tiled_onehot_reference, 4,
+            F32_FLOPS_PER_S, spmm["onehot"]["err"], lib_ms, nnz,
+            timing_kw=dict(reps=3, inner=2, warmup=1))
+    for what, route in spmm["onehot"]["route"].items():
+        add("spmm_tiled_onehot", "f32", what, route["prep"], route["Xp"],
+            spmm_tiled_onehot, spmm_tiled_onehot_reference, 4,
+            F32_FLOPS_PER_S, route["err"],
+            library_ms(route["entries"], (route["m"], route["m"]),
+                       route["X"]),
+            int(route["entries"][0].size))
     return rows
 
 
@@ -1869,9 +2076,21 @@ def unstructured_timings(torch, un, launches: dict) -> tuple[list, dict]:
                                           rows_per_block=256,
                                           entries_per_block=1024),
         lambda: segmented_row_sums_reference(prod, csr.row_ptr, n))
+    # One PyTorch call computing K10's function: per-row sums of the
+    # products by the row pointer.
+    live_prod, offsets = prod[:csr.nnz], csr.row_ptr[:n + 1]
+    seg_lib = torch.segment_reduce(live_prod, "sum", offsets=offsets)
+    ok, seg_lib_err = close(seg_lib.cpu().numpy(), segmented_row_sums(
+        prod, csr.row_ptr, nrows=n, rows_per_block=256,
+        entries_per_block=1024).cpu().numpy(), 1e-5, 1e-5)
+    require(ok, f"segment_reduce differs from K10 ({seg_lib_err})")
+    seg_lib_ms = float(np.median(time_ms(
+        torch, lambda: torch.segment_reduce(live_prod, "sum",
+                                            offsets=offsets))))
     row("segmented_row_sums", "config 2c (CSR products)", ms, plain_ms,
         4 * csr.nnz + 4 * (n + 1) + 4 * n, csr.nnz, seg["err"]["k10"],
-        lib_ms, n=n, nnz=csr.nnz)
+        seg_lib_ms, n=n, nnz=csr.nnz, library_call="torch.segment_reduce",
+        library_csr_spmv_ms=lib_ms)
     ms, plain_ms = compare_times(torch, lambda: shuffle_gather(prep, x),
                                  lambda: shuffle_gather_reference(prep, x),
                                  reps=7, inner=5)
@@ -1894,6 +2113,9 @@ def unstructured_timings(torch, un, launches: dict) -> tuple[list, dict]:
     ms, plain_ms = compare_times(
         torch, lambda: sort_blocks((keys, pay)),
         lambda: sort_blocks_reference((keys, pay)), reps=7, inner=5)
+    ms_again, prior_ms = compare_times(
+        torch, lambda: sort_blocks((keys, pay)),
+        lambda: k12_simt((keys, pay), 1), reps=7, inner=5)
     flat_k, flat_p = keys.reshape(nblk, -1), pay.reshape(nblk, -1)
 
     def library_sort(stable):
@@ -1908,7 +2130,9 @@ def unstructured_timings(torch, un, launches: dict) -> tuple[list, dict]:
     row("sort_blocks", f"({nblk}, {R}, 128) int32 key + float32 payload",
         ms, plain_ms, 2 * 2 * 4 * nel, stages * (nel // 2) * (1 + 2 * 2),
         0.0, sort_lib, dtype="i32 key, f32 payload",
-        library_stable_ms=sort_lib_stable, n=nel, nnz=nel)
+        library_stable_ms=sort_lib_stable, n=nel, nnz=nel,
+        ms_again=ms_again, prior_design_ms=prior_ms,
+        ptxas=ptxas_of(("reg17sort_chunk_kernel",)))
     ends = {
         "spmv_shuffle (best_spmv) ms": float(np.median(time_ms(
             torch, lambda: spmv_shuffle(prep, x), reps=7, inner=5))),
@@ -1926,6 +2150,39 @@ def library_csr(torch, n, dev):
     """``torch.sparse_csr_tensor`` of the benchmark matrix ``B`` on the
     card: the library yardstick, timed here and used nowhere in the port."""
     return library_csr_of(torch, *banded_entries(n), (n, n), dev)
+
+
+def ptxas_of(patterns) -> dict:
+    """Registers and spill bytes that ptxas reported for the kernels whose
+    (mangled) names hold one of ``patterns``, from the build's log
+    (``backend.PTXAS_LOG``), demangled where ``c++filt`` is on PATH."""
+    from spsparse_torch import backend
+
+    path = backend.build().parent / backend.PTXAS_LOG
+    out, cur = {}, None
+    for line in (path.read_text() if path.exists() else "").splitlines():
+        m = re.search(r"(?:entry function '|Function properties for )"
+                      r"([\w$.]+)", line)
+        if m:
+            cur = m.group(1)
+            out.setdefault(cur, {})
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and cur:
+            out[cur].update(stack=int(m.group(1)),
+                            spill_stores=int(m.group(2)),
+                            spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            out[cur]["registers"] = int(m.group(1))
+    keep = {k: v for k, v in out.items() if any(p in k for p in patterns)}
+    if keep and shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(keep),
+                               capture_output=True, text=True,
+                               timeout=60).stdout.split("\n")
+        keep = dict(zip(names, keep.values()))
+    return keep
 
 
 def nvidia_smi_line() -> str:

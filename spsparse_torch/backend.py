@@ -10,7 +10,9 @@ shared library, which is loaded with :mod:`ctypes`:
     nvcc -gencode arch=compute_90a,code=sm_90a -shared
          -o spsparse_torch/_kernels/<hash>/libspsparse_kernels.so *.o
 
-The build directory is keyed by a hash of the sources and flags, so an
+``nvcc``'s ``-Xptxas -v`` report (registers, shared memory and spill bytes
+of every kernel) is kept beside the library as ``ptxas.log``. The build
+directory is keyed by a hash of the sources and flags, so an
 edited kernel is rebuilt and an unchanged one is loaded as it is. Nothing is
 built or loaded when this module is imported: the CPU tests import every
 module, and only a CUDA tensor that needs a kernel triggers the build.
@@ -42,6 +44,7 @@ KERNEL_DIR = Path(__file__).resolve().parent / "_kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 _LIB_NAME = "libspsparse_kernels.so"
+PTXAS_LOG = "ptxas.log"   # each kernel's registers, spills, beside the library
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -63,6 +66,8 @@ _SIGNATURES = {
                          _P],
     "sps_tiled_onehot": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _LL, _I, _P, _LL,
                          _P],
+    "sps_tiled_onehot_simt": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _LL, _I, _P,
+                              _LL, _P],
     "sps_spgemm_pairs": [_I, _I, _P, _P, _P, _P, _P, _I, _P, _P],
     "sps_spgemm_pairs_stream": [_I, _I, _P, _P, _P, _P, _P, _I, _P, _P],
     "sps_spgemm_window": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -75,6 +80,8 @@ _SIGNATURES = {
     "sps_shuffle_gather_scatter": [_I, _P, _P, _P, _P, _P, _LL, _LL, _P, _LL,
                                    _LL, _P, _P],
     "sps_block_sort": [_P, _P, _I, _I, _LL, _LL, _P],
+    "sps_block_sort_simt": [_P, _P, _I, _I, _LL, _LL, _P],
+    "sps_block_sort_geometry": [_I, _I, _LL, _P],
 }
 
 
@@ -143,6 +150,7 @@ def build(verbose: bool = False) -> Path:
                     % (code, " ".join(cmd), err))
             if verbose:
                 print(err, end="")
+        (out_dir / PTXAS_LOG).write_text("".join(log[3] for log in logs))
         os.replace(tmp_lib, lib)
     return lib
 

@@ -9,9 +9,13 @@ a building block for block-local sorts.
 
 On CUDA tensors :func:`sort_blocks` launches ``sps_block_sort``
 (``spsparse_torch/csrc/block_sort.cu``): the bitonic network of
-:func:`plan_stages` in shared memory, one CTA per block, with the stages of
-long distance run as global-memory passes when a block's arrays exceed the
-kernel's shared-memory chunk. The kernel takes int32 keys and 4-byte
+:func:`plan_stages` over a chunk of each block held in registers, E
+elements of every array a thread, with the stages of short distance run in
+registers, those of middle distance by warp shuffles, and shared memory
+used only to change the chunk's placement between threads
+(:func:`block_sort_schedule` gives the sequence, :func:`block_sort_geometry`
+the chunk); a block larger than the chunk runs its stages of long distance
+as global-memory passes. The kernel takes int32 keys and 4-byte
 payloads (any type, moved as bits), at most ``MAX_ARRAYS`` = 8 arrays.
 :func:`sort_blocks` widens that on the card: float32 keys are sorted
 through the order-preserving int32 map :func:`float_order_key`, and more
@@ -39,12 +43,18 @@ import torch
 from .. import backend
 
 __all__ = ["plan_stages", "sort_blocks", "sort_blocks_reference",
-           "sort_blocks_stable", "float_order_key", "sort_by_permutation"]
+           "sort_blocks_stable", "float_order_key", "sort_by_permutation",
+           "block_sort_geometry", "block_sort_schedule", "smem_index"]
 
 Tensor = torch.Tensor
 
 L = 128
 MAX_ARRAYS = 8       # must equal kMaxArrays in csrc/block_sort.cu
+# csrc/block_sort.cu's chunk limits: kMaxThreads, kSmemBudget, and the
+# (num_keys, n_arrays) shapes with kernels of their own.
+SORT_MAX_THREADS = 512
+SORT_SMEM_BUDGET = 96 * 1024
+SORT_SPECIALISED = {(1, 1), (1, 2), (1, 3), (2, 2), (2, 3), (2, 4)}
 
 
 def plan_stages(n: int):
@@ -69,6 +79,103 @@ def plan_stages(n: int):
         span_masks.append(sm)
     return (np.asarray(branch, np.int32), np.asarray(span_masks, np.int32),
             len(stages))
+
+
+def block_sort_geometry(n: int, n_arrays: int, num_keys: int
+                        ) -> tuple[int, int, int]:
+    """``(C, E, threads)`` of K12 for blocks of ``n`` elements: the chunk a
+    CTA sorts, the elements of each array a thread holds in registers, and
+    the CTA's threads (``reg::geometry`` in ``csrc/block_sort.cu``).
+
+    E is 16 for the specialised shapes of up to four arrays and 8 otherwise
+    (4 for chunks under 32 E); C is the largest power of two up to n with
+    at most ``SORT_MAX_THREADS`` threads, ``C <= 32 E^2`` (so that every
+    distance across warps is a register distance once the chunk is
+    striped) and its arrays within ``SORT_SMEM_BUDGET``."""
+    big = 16 if (num_keys, n_arrays) in SORT_SPECIALISED else 8
+    eb = big.bit_length() - 1
+    c = n
+    while (c > SORT_MAX_THREADS * big or c > 1 << (2 * eb + 5)
+           or c * n_arrays * 4 > SORT_SMEM_BUDGET):
+        c //= 2
+    elems = big if c >= 32 * big else 4
+    return c, elems, c // elems
+
+
+def smem_index(e):
+    """Shared-memory word of chunk element ``e`` (int or integer tensor) in
+    K12's exchanges: 16-byte chunks XOR-swizzled within 128-byte rows."""
+    q = e >> 2
+    return ((q ^ ((q >> 3) & 7)) << 2) | (e & 3)
+
+
+def block_sort_schedule(n: int, elems: int, threads: int) -> list[tuple]:
+    """The steps K12 runs on a block of ``n`` elements with chunks of
+    ``C = elems * threads`` (``elems`` a power of two >= 4, ``threads`` a
+    power of two >= 32, ``C <= 32 elems^2``), in order:
+
+    * ``("load", base_span)``: a chunk pass starts, reading its elements
+      striped (placement ``"L1"``: element ``i * threads + t`` in register
+      ``i`` of thread ``t``);
+    * ``("exchange", placement)``: the chunk changes placement through
+      shared memory, to ``"L0"`` (blocked: element ``t * elems + i``) or
+      ``"L1"``;
+    * ``("register", d, span, placement)``, ``("shuffle", d, span, "L0")``:
+      a stage of distance ``d`` within a thread's registers, or between
+      lanes ``lane ^ (d / elems)`` of a warp;
+    * ``("global", d, span)``: a stage of distance ``d >= C`` as a pass
+      over device memory;
+    * ``("store",)``: the chunk pass writes its elements, striped.
+
+    ``span`` is the direction mask of :func:`plan_stages` (the span, or
+    ``2 n`` for the last). The stages, in order, are exactly those of
+    :func:`plan_stages`."""
+    C = elems * threads
+    eb, sh = elems.bit_length() - 1, threads.bit_length() - 1
+    if (elems < 4 or threads < 32 or elems & (elems - 1)
+            or threads & (threads - 1) or sh > eb + 5 or n & (n - 1)
+            or C > n):
+        raise ValueError(f"no K12 chunk of {elems} x {threads} for n={n}")
+    steps = []
+
+    def chunk_pass(first, last):
+        steps.append(("load", first))
+        steps.append(("exchange", "L0"))
+        where = "L0"
+        span = first
+        while span <= last:
+            mask = span if span < n else 2 * n
+            k = min(span, C).bit_length() - 2
+            while k >= 0:
+                d = 1 << k
+                if k >= sh and (where == "L1" or k >= eb + 5):
+                    if where != "L1":
+                        steps.append(("exchange", "L1"))
+                        where = "L1"
+                    steps.append(("register", d, mask, "L1"))
+                else:
+                    if where != "L0":
+                        steps.append(("exchange", "L0"))
+                        where = "L0"
+                    kind = "register" if k < eb else "shuffle"
+                    steps.append((kind, d, mask, "L0"))
+                k -= 1
+            span *= 2
+        if where != "L1":
+            steps.append(("exchange", "L1"))
+        steps.append(("store",))
+
+    chunk_pass(2, C)
+    span = 2 * C
+    while span <= n:
+        mask = span if span < n else 2 * n
+        d = span // 2
+        while d >= C:
+            steps.append(("global", d, mask))
+            d //= 2
+        chunk_pass(span, span)
+        span *= 2
+    return steps
 
 
 def sort_blocks_reference(arrays: Sequence[Tensor], num_keys: int = 1

@@ -19,7 +19,10 @@ by block row:
 Both give a float32 ``(shape[0], N)`` result. On CUDA tensors the wrappers
 launch the Hopper kernels ``sps_tiled_onehot`` and ``sps_tiled_dense``
 (``spsparse_torch/csrc/tiled.cu``; K6's body, a ``cp.async`` ring with
-bfloat16 on ``mma.sync`` tensor cores, is ``csrc/tiled_dense.cuh``); on
+bfloat16 on ``mma.sync`` tensor cores, is ``csrc/tiled_dense.cuh``; K7
+stages the X rows its entries name in shared memory and keeps Y in
+registers, or, for tiles of at most 256 entries, gives a warp each block
+row); on
 CPU tensors they run the plain
 versions :func:`spmm_tiled_onehot_reference` and
 :func:`spmm_tiled_dense_reference`, which are blocked over block rows so

@@ -11,9 +11,9 @@ phase 14, and bench config 4's matrix (2**17 rows) with its band plan and
 pair plans (A A^T, and C C for C = A A^T), and bench config 2c (2**20 rows,
 10 uniform-random columns a row) with its shuffle layout and CSR products
 and the (1024, 64, 128) block sort, as ``chip_smoke.py`` does; runs each
-wrapper (and the library calls and earlier kernel designs, the first SIMT
-bodies of K8 and K9 and K11's scatter design, that ``chip_smoke.py`` uses
-as yardsticks) 10 times under
+wrapper (and the library calls and earlier kernel designs, the first
+bodies of K7, K8, K9 and K12 and K11's scatter design, that
+``chip_smoke.py`` uses as yardsticks) 10 times under
 ``torch.profiler``, and prints one JSON line per workload: the CUDA kernels
 it ran, their count and device time, and the device time per call. Needs
 one CUDA card.
@@ -148,7 +148,10 @@ def main() -> int:
         "K6 bf16, config 3": lambda: spmm_tiled_dense(d16, X3),
         "K7 f32, config 3": lambda: spmm_tiled_onehot(rows, X3),
         "library A3_csr @ X, config 3": lambda: A3_csr @ X3,
+        "K7 f32, config 3, first SIMT body": lambda: cs.k7_simt(rows, X3),
         "K7 f32, one_hot route": lambda: spmm_tiled_onehot(pg.prep, Xo),
+        "K7 f32, one_hot route, first SIMT body": lambda: cs.k7_simt(
+            pg.prep, Xo),
         "library Ao_csr @ X, one_hot route": lambda: Ao_csr @ Xo,
         "K8 f32, config 4 A A^T band": lambda: spgemm_window(*band["f32"]),
         "K8 bf16, config 4 A A^T band": lambda: spgemm_window(*band["bf16"]),
@@ -185,6 +188,9 @@ def main() -> int:
         "K10 f32, config 2c CSR products": lambda: segmented_row_sums(
             prod2, csr2.row_ptr, nrows=n, rows_per_block=256,
             entries_per_block=1024),
+        "library torch.segment_reduce, config 2c CSR products":
+            lambda: torch.segment_reduce(prod2[:csr2.nnz], "sum",
+                                         offsets=csr2.row_ptr[:n + 1]),
         "K11 f32, config 2c slot-order layout": lambda: shuffle_gather(
             shuf, x2),
         "K11 f32, config 2c, PR 5's scatter": lambda: cs.k11_pr5(shuf, x2),
@@ -192,6 +198,8 @@ def main() -> int:
         "library A2_csr @ x, config 2c": lambda: A2_csr @ x2,
         "K12 (1024, 64, 128) key + payload": lambda: sort_blocks((keys,
                                                                   pay)),
+        "K12 (1024, 64, 128) key + payload, first body":
+            lambda: cs.k12_simt((keys, pay), 1),
         "library torch.sort + gather, (1024, 8192)": lambda: fp.gather(
             1, torch.sort(fk, dim=-1).indices),
     }

@@ -438,13 +438,25 @@ def test_k5_rejects_misaligned_blocks():
     assert spmm_tiled_window.launches == before
 
 
-@pytest.mark.parametrize("m,k,N,empty", TILED_CASES)
+K7_CASES = TILED_CASES + [
+    (512, 100, 128, 0),      # config 3's fill and more: tiles past 4096
+    (700, 8, 3, 4),          # N = 3, empty block rows
+    (300, 5, 200, 0),        # N over two 128-column chunks
+]
+
+
+def bits(t):
+    return t.view(torch.int32)
+
+
+@pytest.mark.parametrize("m,k,N,empty", K7_CASES)
 def test_k7_matches_plain(m, k, N, empty):
     from spsparse_torch.ops import (prepare_tiled_rows, spmm_tiled_onehot,
                                     spmm_tiled_onehot_reference)
 
     dev = _cuda()
-    tl = regrid(dev, m, k, m, empty_every=empty)
+    tl = regrid(dev, m, k, m, spread=30 if k > 50 else 100,
+                empty_every=empty)
     prep = prepare_tiled_rows(tl)
     X = torch.from_numpy(np.random.default_rng(3).uniform(
         -1, 1, (2 * m, N)).astype(np.float32)).to(dev)
@@ -454,7 +466,124 @@ def test_k7_matches_plain(m, k, N, empty):
     assert spmm_tiled_onehot.launches == before + 1
     ref = spmm_tiled_onehot_reference(prep, X)
     torch.testing.assert_close(Y, ref, **_scaled(_tol("float32"), ref))
-    assert torch.equal(Y, spmm_tiled_onehot(prep, X))   # fixed order
+    assert torch.equal(bits(Y), bits(spmm_tiled_onehot(prep, X)))
+    assert torch.equal(bits(Y), bits(chip_smoke.k7_simt(prep, X)))
+    if k > 50:
+        assert prep.tile_cap > 4096   # more than one staging unit a tile
+
+
+def k7_layout(dev, rng, M, K, rt, cap, pad_slots, order):
+    """A PreparedTiledRows by hand: random tile columns with padding slots
+    (sentinel nbc) and an all-padding block row, entries with duplicates
+    and rows in random order (``order`` "random"), sorted within each tile
+    ("sorted") or within each 256 slots ("windows"), value-0 slots in the
+    middle and at the tail of each tile."""
+    from spsparse_torch.ops import PreparedTiledRows
+
+    nbr, nbc = -(-M // 128), -(-K // 128)
+    tcols = rng.integers(0, nbc, (nbr, rt))
+    tcols[rng.random((nbr, rt)) < pad_slots] = nbc
+    tcols[nbr // 2] = nbc
+    rows = rng.integers(0, 128, (nbr, rt, cap))
+    if order == "sorted":
+        rows = np.sort(rows, axis=-1)
+    elif order == "windows":
+        w = rows.reshape(nbr, rt, -1, 256)
+        rows = np.sort(w, axis=-1).reshape(nbr, rt, cap)
+    cols = rng.integers(0, 128, (nbr, rt, cap))
+    # Columns of the last, partial tile column stay below K.
+    last = (tcols == nbc - 1)[:, :, None]
+    cols = np.where(last, cols % (K - (nbc - 1) * 128), cols)
+    vals = rng.uniform(-1, 1, (nbr, rt, cap)).astype(np.float32)
+    vals[rng.random(vals.shape) < 0.2] = 0.0
+    vals[:, :, cap - cap // 4:] = 0.0
+    vals[tcols >= nbc] = 0.0
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a).astype(
+            np.int32 if a.dtype != np.float32 else np.float32)).to(dev)
+
+    return PreparedTiledRows(tcols=t(tcols), rows=t(rows), cols=t(cols),
+                             vals=t(vals), shape=(M, K))
+
+
+# (tile cap, row order, non-finite X, tiles a block row): caps of at most
+# 256 take the warp-a-block-row kernel (one piece of 256 slots with three
+# tiles of 64, several pieces, split mid-tile, past that), larger ones the
+# staged kernel: in row order (its compaction path) or not (its stable
+# ranking), past one staging unit (4096 slots) with 5000.
+K7_EDGES = {"small": (64, "random", False, 3),
+            "unsorted": (128, "random", False, 3),
+            "sorted": (128, "sorted", False, 3),
+            "many_tiles": (48, "random", False, 13),
+            "many_tiles_sorted": (48, "sorted", False, 13),
+            "full_pieces": (256, "random", False, 3),
+            "staged": (300, "random", False, 3),
+            "staged_sorted": (300, "sorted", False, 3),
+            "windows": (1024, "windows", False, 3),
+            "wide_tiles": (5000, "random", False, 3),
+            "wide_sorted": (5000, "sorted", False, 3),
+            "odd_cap": (100, "sorted", False, 3),   # no 16-byte slot loads
+            "odd_cap_random": (100, "random", False, 3),
+            "nonfinite": (128, "random", True, 3),
+            "nonfinite_sorted": (128, "sorted", True, 3),
+            "nonfinite_small": (64, "random", True, 3),
+            "nonfinite_many": (48, "random", True, 13),
+            "nonfinite_staged": (300, "random", True, 3)}
+
+
+@pytest.mark.parametrize("N", [1, 3, 100, 128, 200])
+@pytest.mark.parametrize("case", list(K7_EDGES))
+def test_k7_layout_edges_bitwise(N, case):
+    """K7 equal to its first SIMT body bit for bit on hand-built layouts:
+    padding slots and an empty block row, K not a multiple of 128,
+    duplicate entries and unsorted rows, block rows of several 256-slot
+    pieces, tiles of more than one staging unit (4096 slots), and Inf/NaN
+    in X rows that no entry names (they must not reach Y) and in rows that
+    an entry names."""
+    from spsparse_torch.ops import (spmm_tiled_onehot,
+                                    spmm_tiled_onehot_reference)
+
+    dev = _cuda()
+    rng = np.random.default_rng(N * 7 + len(case))
+    M, K = 1000, 1650
+    cap, order, nonfinite, rt = K7_EDGES[case]
+    prep = k7_layout(dev, rng, M, K, rt, cap, 0.3, order)
+    Xh = rng.uniform(-1, 1, (K, N)).astype(np.float32)
+    if nonfinite:
+        named = np.zeros(K, bool)
+        tc = prep.tcols.cpu().numpy()
+        live = (prep.vals.cpu().numpy() != 0) & (tc < prep.nbc)[:, :, None]
+        gcol = tc[:, :, None] * 128 + prep.cols.cpu().numpy()
+        named[gcol[live]] = True
+        unnamed = np.flatnonzero(~named)
+        Xh[unnamed[::3], :] = np.inf
+        Xh[unnamed[1::3], :] = np.nan
+        Xh[np.flatnonzero(named)[:2], 0] = [np.inf, np.nan]
+    X = torch.from_numpy(Xh).to(dev)
+    dirty_cache(dev, M * N * 4)
+    before = spmm_tiled_onehot.launches
+    Y = spmm_tiled_onehot(prep, X)
+    torch.cuda.synchronize()
+    assert spmm_tiled_onehot.launches == before + 1
+    assert torch.equal(bits(Y), bits(chip_smoke.k7_simt(prep, X)))
+    assert torch.equal(bits(Y), bits(spmm_tiled_onehot(prep, X)))
+    if not nonfinite:
+        ref = spmm_tiled_onehot_reference(prep, X)
+        torch.testing.assert_close(Y, ref, **_scaled(_tol("float32"), ref))
+    else:
+        # Only rows whose entries name a non-finite X row are non-finite.
+        tc = prep.tcols.cpu().numpy()
+        vals = prep.vals.cpu().numpy()
+        live = (vals != 0) & (tc < prep.nbc)[:, :, None]
+        gcol = tc[:, :, None] * 128 + prep.cols.cpu().numpy()
+        grow = (np.arange(tc.shape[0])[:, None, None] * 128
+                + prep.rows.cpu().numpy())
+        bad = ~np.isfinite(Xh).all(axis=1)
+        hit = np.zeros(tc.shape[0] * 128, bool)   # rows past M included
+        hit[grow[live & bad[np.minimum(gcol, K - 1)]]] = True
+        finite = torch.isfinite(Y).all(dim=1).cpu().numpy()
+        np.testing.assert_array_equal(finite, ~hit[:M])
 
 
 def test_tiled_cuda_tensors_never_reach_plain_versions(monkeypatch):
@@ -1025,6 +1154,9 @@ def canon_blocks(arrays):
     ((2, 64, 128), 1, 3),
     ((3, 256, 128), 2, 1),       # 384 KB a block: past the smem chunk
     ((1, 1024, 128), 1, 1),      # 1 MB a block: many global passes
+    ((2, 64, 128), 2, 2),        # four arrays: a 4096-element chunk
+    ((2, 32, 128), 1, 4),        # five arrays: the generic kernel
+    ((3, 2, 128), 3, 5),         # eight arrays, three keys
 ])
 def test_k12_matches_plain(shape, num_keys, n_payload):
     from spsparse_torch.ops import sort_blocks, sort_blocks_reference
@@ -1047,6 +1179,24 @@ def test_k12_matches_plain(shape, num_keys, n_payload):
         assert torch.equal(g, r)
     for g, r in zip(canon_blocks(got), canon_blocks(ref)):
         assert torch.equal(g, r)
+    # The same network and tie rule as the first body: payloads too.
+    assert chip_smoke.bitwise_equal(torch, got,
+                                    chip_smoke.k12_simt(arrays, num_keys))
+
+
+@pytest.mark.parametrize("n_arrays,num_keys", [
+    (1, 1), (2, 1), (3, 1), (2, 2), (3, 2), (4, 2), (4, 1), (5, 1), (8, 3)])
+@pytest.mark.parametrize("R", [1, 2, 4, 8, 16, 64, 256, 1024])
+def test_k12_geometry_is_the_kernels(R, n_arrays, num_keys):
+    """The host replay's copy of the chunk geometry (block_sort_geometry,
+    which the CPU tests' schedule replay runs on) equals what the library
+    launches, for every specialised and generic shape."""
+    from spsparse_torch.ops.block_sort import block_sort_geometry
+
+    _cuda()
+    n = R * 128
+    assert (chip_smoke.k12_geometry(n, n_arrays, num_keys)
+            == block_sort_geometry(n, n_arrays, num_keys))
 
 
 @pytest.mark.parametrize("key_bound", [8, None])
@@ -1105,6 +1255,8 @@ def test_k12_float_keys_and_many_arrays(num_keys, n_arrays):
         assert torch.equal(g, r)
     for g, r in zip(canon_blocks(got), canon_blocks(ref)):
         assert torch.equal(g, r)
+    assert chip_smoke.bitwise_equal(torch, got,
+                                    chip_smoke.k12_simt(arrays, num_keys))
 
 
 def test_unstructured_cuda_tensors_never_reach_plain_versions(monkeypatch):
