@@ -32,9 +32,18 @@ Gershgorin: off-diagonal row sums below 10, diagonal above -1):
    transpose at 0.5), ``consolidate``, ``to_dia``, ``prepare_dia``.
 8. ``spmm_dia_mrhs`` (K3) on ``B`` and ``X (8, n)``, float32 and bfloat16
    data, against its plain version and 8 K1 calls; ``R = 7`` and a 1-D ``x``.
-9. ``cg_solve_dia`` (K4), 50 iterations, against its plain version, the
-   composed ``cg_solve`` over K1 and a float64 scipy residual; ``b = 0``
-   gives ``x = 0`` and ``rs = 0``.
+9. ``cg_solve_dia`` (K4, one cooperative launch a solve), 50 iterations,
+   against its plain version, the composed ``cg_solve`` over K1 and a
+   float64 scipy residual; ``b = 0`` gives ``x = 0`` and ``rs = 0``. Then
+   S with bfloat16 diagonals, a symmetric 11-diagonal matrix of 4n rows
+   built on the card (too large for the kernel's resident mode: the
+   device-memory mode), offsets (-n/2, -1, 0, 1, n/2), n = 100 (below the
+   grid of one CTA an SM) and n = 2**14, each against its plain version
+   and a float64 residual (1e-4 of max|x|, 1e-4 of max|b|). On the card
+   each also gives the same x and rs bit for bit on a second solve, and
+   the launch geometry the kernel reports (``sps_dia_cg_geometry``) must
+   equal the Python mirror's (``cg_geometry``) from the card's
+   properties.
 10. ``cg_solve_mrhs`` over K3 with a Jacobi preconditioner, 8 right-hand
     sides, 50 iterations: per-column float64 residuals, and one column
     against ``pcg_solve`` over K1.
@@ -60,8 +69,7 @@ from ``default_rng(0)``):
     in the diagonal tile of each block row, and 8 tiles of 40-48 entries a
     block row, past one 256-slot piece) against scipy; bench config 3b's
     scattered matrix (route ``gather_ell``) against scipy. On all four K7
-    layouts the kernel must equal its first SIMT body
-    (``sps_tiled_onehot_simt``) and a second call bit for bit.
+    layouts the kernel must equal a second call bit for bit.
 15. One backward through ``spmm_general`` on the dense-window layout at
     2**13 rows, against the plain backward on the CPU.
 
@@ -76,15 +84,14 @@ operand:
 17. K8: ``best_spgemm(A, A, transpose_b=True)`` (routes ``tiled`` and
     ``window``) in float32 and ``spgemm_tiled`` with bfloat16 blocks
     against scipy; the band of ``plan_window_spgemm`` through K8 against
-    its plain version in both types, its dead slots exactly zero; float32
-    K8 must equal the first K8 body bit for bit.
+    its plain version in both types, its dead slots exactly zero, and a
+    second call bit for bit.
 18. K9 and K13: ``spgemm_tiled(A, A, transpose_b=True, use_window=False)``
     (config 4's pair plan), ``C = A A^T``, ``best_spgemm(C, C)`` and
     ``coo_matrix_power(C, 3)`` (the routes of each product logged) against
     scipy; K9 and K13 on both pair plans, in float32 and bfloat16, against
-    the plain version and each other; float32 K9 must equal K13 and the
-    first K9 body bit for bit, and two K9 and two K13 calls must agree bit
-    for bit.
+    the plain version and each other; float32 K9 must equal K13 bit for
+    bit, and two K9 and two K13 calls must agree bit for bit.
 19. ESC: ``spgemm_aat`` and ``plan_esc`` (device and host) +
     ``spgemm_planned`` against scipy.
 20. Hand-off: the band's ``TiledBlocks.to_prepared_dense()`` through K6
@@ -110,12 +117,15 @@ columns a row, values uniform(-1, 1), x uniform(-1, 1), all from
     ten arrays (keys through K12 with a position payload, then a gather);
     ``sort_blocks_stable`` packed and not. Keys exact, payloads exact when
     stable and otherwise as a multiset within each run of equal keys; on
-    all six shapes, keys and payloads equal to K12's first body
-    (``sps_block_sort_simt``, dispatched alike) bit for bit.
+    all six shapes, keys and payloads equal to a second call bit for bit;
+    the chunk geometry the kernel reports equal to the host replay's.
 25. Time every kernel against its plain version (CUDA events, in turns:
     plain, kernel, kernel, plain), and one PyTorch library call computing
     the same function where there is one (``torch.sparse_csr_tensor``
-    products; none for K4, whose solve is no single library call). K7 is
+    products; none for K4, whose solve is no single library call). K4 per
+    iteration (solves of 72 and 8 iterations) on S in float32 and bfloat16,
+    in the device-memory mode at 4n rows and at n = 2**14, where the two
+    grid-wide exchanges of an iteration set its time. K7 is
     timed on the four layouts of phase 14: config 3's tiles, sorted and
     shuffled, and the two one_hot route layouts, the traffic
     ``prepare_general`` sends it. K8, K9 and K13 at config
@@ -123,11 +133,9 @@ columns a row, values uniform(-1, 1), x uniform(-1, 1), all from
     end to end, the ESC ``spgemm_aat`` and the planned apply. K10 and K11
     at config 2c against cuSPARSE's CSR SpMV, with ``spmv_shuffle`` and
     ``spmv_csr_segsum`` end to end in nnz/s; K12 against ``torch.sort``
-    carrying the payload through ``gather``. K8, K9 and K11 are also timed
-    against their earlier designs (the first SIMT bodies of K7, K8, K9
-    and K12; K11's scatter design), kept in the kernel library as
-    yardsticks and called only here and in ``tests_gpu/``, and K13 against
-    K9 in turns. K10's library call is ``torch.segment_reduce`` of the
+    carrying the payload through ``gather``. K11 is also timed against its
+    earlier scatter design, kept in the kernel library as a yardstick and
+    called only here and in ``tests_gpu/``, and K13 against K9 in turns. K10's library call is ``torch.segment_reduce`` of the
     same products by the row pointer (cuSPARSE's whole CSR SpMV beside
     it). The K7 and K12 rows carry ptxas's registers and spill bytes for
     their kernels. K8, K9 and K13 carry two bounds: the dense one
@@ -162,6 +170,8 @@ CHAIN_ITERS = 64
 CHAIN_SCALE = 0.3
 SHIFT = 11.0         # S + 11 I is SPD by Gershgorin
 CG_ITERS = 50
+CG_TINY_N = 100      # K4 below the grid (264 CTAs on an H100)
+CG_SMALL_N = 1 << 14  # K4 where the grid barriers dominate
 RHS = 8              # right-hand sides of K3 and the block solve
 SPMM_M = 1 << 18     # rows of bench config 3's regridding matrix
 SPMM_K = 50          # entries a row
@@ -537,30 +547,110 @@ def residual_inf(S_host, x, rhs) -> np.ndarray:
     return np.abs(r).max(axis=0)
 
 
+def spd_dia(torch, dev, n, offsets, seed):
+    """A symmetric DIA built on ``dev`` (float32 diagonals from a seeded
+    generator): off-diagonals uniform(-0.5, 0.5), ``A[i, i+o] = A[i+o, i]``,
+    the main diagonal uniform(0, 1); with 10 off-diagonals at most,
+    ``A + SHIFT I`` is SPD by Gershgorin."""
+    from spsparse_torch.ops.dia_stream import PreparedDIA
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    offsets = tuple(offsets)
+    data = torch.zeros((len(offsets), n), device=dev)
+    for k, o in enumerate(offsets):
+        if 0 < o < n:
+            v = torch.rand(n - o, generator=g, device=dev) - 0.5
+            data[k, :n - o] = v
+            data[offsets.index(-o), o:] = v
+    if 0 in offsets:
+        data[offsets.index(0)] = torch.rand(n, generator=g, device=dev)
+    return PreparedDIA(data=data, offsets=offsets, shape=(n, n))
+
+
+def dia_residual_inf(torch, prep, x, b) -> float:
+    """``max|(A + SHIFT I) x - b|`` in float64 on the operand's device, for
+    the diagonals as stored (bfloat16 ones as rounded: the operator the
+    kernel solves)."""
+    n = prep.shape[0]
+    data, x = prep.data.double(), x.double()
+    r = SHIFT * x - b.double()
+    for k, o in enumerate(prep.offsets):
+        lo, hi = max(0, -o), min(n, n - o)
+        if hi > lo:
+            r[lo:hi] += data[k, lo:hi] * x[lo + o:hi + o]
+    return float(r.abs().max())
+
+
+def cg_geometry_pair(torch, n, dtype):
+    """K4's launch geometry for ``n`` rows as the kernel reports it, and as
+    the Python mirror computes it from the card's properties."""
+    from spsparse_torch.ops.dia_cg import cg_geometry, cg_kernel_geometry
+
+    props = torch.cuda.get_device_properties(0)
+    mirror = cg_geometry(
+        n, sms=props.multi_processor_count,
+        smem_per_sm=props.shared_memory_per_multiprocessor,
+        smem_per_block=props.shared_memory_per_block_optin)
+    return cg_kernel_geometry(n, dtype), mirror
+
+
+def check_cg_case(torch, dev, what, prep, b, *, resident=None):
+    """K4 on ``prep`` and ``b`` against its plain version (1e-4 of max|x|)
+    and a float64 residual (1e-4 of max|b|); on the card, a second solve
+    equal bit for bit and the geometry the kernel reports equal to the
+    mirror's (and its mode, where ``resident`` names it)."""
+    from spsparse_torch.ops import cg_solve_dia, cg_solve_dia_reference
+
+    n = prep.shape[0]
+    x, rs = cg_solve_dia(prep, b, iters=CG_ITERS, shift=SHIFT)
+    x_ref, _ = cg_solve_dia_reference(prep, b, iters=CG_ITERS, shift=SHIFT)
+    sync(torch, dev)
+    require(tuple(x.shape) == (n,) and bool(torch.isfinite(x).all())
+            and rs.shape == () and rs.device == x.device,
+            f"K4 {what}: not a finite (n,) x with a 0-d device rs")
+    scale = float(x_ref.abs().max())
+    err = float((x - x_ref).abs().max())
+    require(err <= 1e-4 * scale, f"K4 {what} off its plain version "
+            f"(max abs err {err}, max|x| {scale})")
+    res = dia_residual_inf(torch, prep, x, b)
+    bound = 1e-4 * float(b.abs().max())
+    require(res <= bound, f"K4 {what}: residual {res} above {bound}")
+    out = {"x": x, "err": err, "residual": res, "rs": float(rs)}
+    if dev != "cpu":
+        x2, rs2 = cg_solve_dia(prep, b, iters=CG_ITERS, shift=SHIFT)
+        sync(torch, dev)
+        require(torch.equal(x, x2) and torch.equal(rs, rs2),
+                f"K4 {what}: two solves differ in some bit")
+        kernel_geo, mirror_geo = cg_geometry_pair(torch, n, prep.data.dtype)
+        require(kernel_geo == mirror_geo, f"K4 {what}: the kernel's geometry "
+                f"{kernel_geo} is not the mirror's {mirror_geo}")
+        require(resident is None or kernel_geo.resident == resident,
+                f"K4 {what}: geometry {kernel_geo}, not the expected mode")
+        out["geometry"] = tuple(kernel_geo)
+    return out
+
+
 def phase_cg(torch, dev, spd):
-    """Phase 9: K4 against its plain version, the composed solve over K1
-    and a float64 residual; b = 0."""
-    from spsparse_torch.ops import (best_spmv, cg_solve_dia,
-                                    cg_solve_dia_reference)
+    """Phase 9: K4 on S against its plain version, the composed solve over
+    K1 and a float64 residual; b = 0; then S with bfloat16 diagonals, a
+    matrix of 4n rows (the device-memory mode on an H100), offsets of
+    +-n/2, n = 100 (below the grid) and n = 2^14, each against its plain
+    version and a float64 residual, bit for bit from one solve to the next,
+    with the geometry the kernel reports equal to the mirror's."""
+    from spsparse_torch.ops import best_spmv, cg_solve_dia, prepare_dia
     from spsparse_torch.solvers import cg_solve
 
     prep = spd["prep"]
     n = prep.shape[0]
     b = torch.from_numpy(np.random.default_rng(3).uniform(-1, 1, n)
                          .astype(np.float32)).to(dev)
-    x, rs = cg_solve_dia(prep, b, iters=CG_ITERS, shift=SHIFT)
-    x_ref, _ = cg_solve_dia_reference(prep, b, iters=CG_ITERS, shift=SHIFT)
+    main = check_cg_case(torch, dev, "S", prep, b, resident=True)
     x_cmp, _ = cg_solve(lambda v: best_spmv(prep, v) + SHIFT * v, b,
                         iters=CG_ITERS)
     sync(torch, dev)
-    xn = x.cpu().numpy()
-    require(bool(np.all(np.isfinite(xn))) and xn.shape == (n,)
-            and rs.shape == () and rs.device == x.device,
-            "K4 output is not a finite (n,) vector with a 0-d device rs")
+    xn = main["x"].cpu().numpy()
     # 50 iterations compound f32 rounding (fused vs separate multiply-adds,
     # block-ordered vs library-ordered dot products): 1e-4 of max|x|, as K2.
-    ok, err = close(xn, x_ref.cpu().numpy(), 0.0, 1e-4)
-    require(ok, f"K4 off its plain version (max abs err {err})")
     ok, err_cmp = close(xn, x_cmp.cpu().numpy(), 0.0, 1e-4)
     require(ok, f"K4 off the composed cg_solve over K1 ({err_cmp})")
     bn = b.cpu().numpy()
@@ -569,13 +659,40 @@ def phase_cg(torch, dev, spd):
     # with margin and still fails an unconverged or wrong solve.
     res = float(residual_inf(spd["S_host"], xn, bn))
     bound = 1e-4 * float(np.abs(bn).max())
-    require(res <= bound, f"K4 residual {res} above {bound}")
+    require(res <= bound, f"K4 residual {res} above scipy's {bound}")
     x0, rs0 = cg_solve_dia(prep, torch.zeros_like(b), iters=5, shift=SHIFT)
     sync(torch, dev)
     require(not bool(x0.any()) and float(rs0) == 0.0,
             "K4 with b = 0 did not give x = 0 and rs = 0")
-    return {"b": b, "x": x, "err": err, "err_composed": err_cmp,
-            "residual": res, "rs": float(rs)}
+
+    def rhs(m, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return torch.rand(m, generator=g, device=dev) * 2 - 1
+
+    big, small = 4 * n, CG_SMALL_N
+    band = tuple(range(-BAND, BAND + 1))
+    # name: (operand, b, the mode the geometry must report, timed in
+    # phase 25)
+    cases = {
+        "S bf16": (prepare_dia(spd["S"], dtype=torch.bfloat16), b, True,
+                   True),
+        f"device-memory mode, n = {big}": (
+            spd_dia(torch, dev, big, band, 5), rhs(big, 6), False, True),
+        "offsets -n/2, -1, 0, 1, n/2": (
+            spd_dia(torch, dev, n, (-n // 2, -1, 0, 1, n // 2), 7),
+            rhs(n, 8), None, False),
+        f"n = {CG_TINY_N}, below the grid": (
+            spd_dia(torch, dev, CG_TINY_N, (-3, -1, 0, 1, 3), 9),
+            rhs(CG_TINY_N, 10), True, False),
+        f"n = {small}": (spd_dia(torch, dev, small, band, 11),
+                         rhs(small, 12), True, True),
+    }
+    checked = {what: {**check_cg_case(torch, dev, what, p, bb, resident=mode),
+                      "prep": p, "b": bb, "timed": timed}
+               for what, (p, bb, mode, timed) in cases.items()}
+    return {"b": b, "x": main["x"], "err": main["err"],
+            "err_composed": err_cmp, "residual": res, "rs": main["rs"],
+            "geometry": main.get("geometry"), "cases": checked}
 
 
 def phase_block_cg(torch, dev, spd):
@@ -623,9 +740,13 @@ def solve_path(torch, sp, dev, n=N) -> dict:
         f"({time.perf_counter() - t0:.3f} s)")
     t0 = time.perf_counter()
     cg = phase_cg(torch, dev, spd)
+    cases = {what: {k: c[k] for k in ("err", "residual", "rs", "geometry")
+                    if k in c} for what, c in cg["cases"].items()}
     log(f"phase 9 K4 CG ({CG_ITERS} iterations, shift {SHIFT}): max abs err "
         f"{cg['err']!r} vs plain, {cg['err_composed']!r} vs composed; "
-        f"residual inf-norm {cg['residual']!r}; final rs {cg['rs']!r} "
+        f"residual inf-norm {cg['residual']!r}; final rs {cg['rs']!r}; "
+        f"(grid, CTAs an SM, rows a CTA, resident, smem, scratch) "
+        f"{cg['geometry']}; cases {cases} "
         f"({time.perf_counter() - t0:.3f} s)")
     t0 = time.perf_counter()
     blk = phase_block_cg(torch, dev, spd)
@@ -860,28 +981,25 @@ def phase_onehot(torch, sp, dev, reg, dense, m_onehot, m_3b):
     err = check_pair(Y, spmm_tiled_onehot_reference(prep, X),
                      "K7 vs plain", False)
     err = max(err, check_pair(Y, dense["Y_f32"], "K7 vs K6 f32", False))
-    # The card's K7 against its first body and a second call, bit for bit
-    # (on the CPU both sides would be the plain version).
+    # The card's K7 against a second call, bit for bit (on the CPU both
+    # sides would be the plain version).
     on_card = dev != "cpu"
     bitwise = {}
     if on_card:
-        bitwise["config 3"] = (
-            bitwise_equal(torch, Y, k7_simt(prep, X))
-            and bitwise_equal(torch, Y, spmm_tiled_onehot(prep, X)))
-        require(bitwise["config 3"], "K7 at config 3 differs from its first "
-                "body or from a second call, bit for bit")
+        bitwise["config 3"] = bitwise_equal(torch, Y,
+                                            spmm_tiled_onehot(prep, X))
+        require(bitwise["config 3"], "K7 at config 3 differs from a second "
+                "call, bit for bit")
     unsorted = unsorted_tiles(torch, prep)
     Yu = spmm_tiled_onehot(unsorted, X)
     sync(torch, dev)
     err = max(err, check_pair(Yu, Y, "K7 on unsorted tiles vs sorted",
                               False))
     if on_card:
-        bitwise["config 3, rows unsorted"] = (
-            bitwise_equal(torch, Yu, k7_simt(unsorted, X))
-            and bitwise_equal(torch, Yu, spmm_tiled_onehot(unsorted, X)))
+        bitwise["config 3, rows unsorted"] = bitwise_equal(
+            torch, Yu, spmm_tiled_onehot(unsorted, X))
         require(bitwise["config 3, rows unsorted"], "K7 on config 3's "
-                "unsorted tiles differs from its first body or from a "
-                "second call, bit for bit")
+                "unsorted tiles differs from a second call, bit for bit")
 
     route = {}
     for what, entries in (("one_hot route", onehot_entries(m_onehot)),
@@ -905,14 +1023,14 @@ def phase_onehot(torch, sp, dev, reg, dense, m_onehot, m_3b):
     require(ok, f"gather_ell route off scipy (max abs err {err_3b})")
     return {"prep": prep, "unsorted": unsorted, "err": err,
             "err_gather_ell": err_3b,
-            "bitwise_k7_simt": bitwise, "ell_kmax": pg3.prep.cols.shape[1],
+            "bitwise_repeat": bitwise, "ell_kmax": pg3.prep.cols.shape[1],
             "route": route}
 
 
 def onehot_route(torch, sp, dev, m, entries, what):
     """``prepare_general`` of a one-hot-tier matrix (it must route to K7)
     and its product: against the plain version and scipy, and on the card
-    against K7's first body and a second call, bit for bit."""
+    against a second call, bit for bit."""
     from spsparse_torch.ops import (prepare_general, spmm_general,
                                     spmm_tiled_onehot,
                                     spmm_tiled_onehot_reference)
@@ -931,11 +1049,9 @@ def onehot_route(torch, sp, dev, m, entries, what):
     bitwise = None
     if dev != "cpu":
         Yk = spmm_tiled_onehot(pg.prep, Xo_p)
-        bitwise = (bitwise_equal(torch, Yk, k7_simt(pg.prep, Xo_p))
-                   and bitwise_equal(torch, Yk,
-                                     spmm_tiled_onehot(pg.prep, Xo_p)))
-        require(bitwise, f"K7 on the {what} differs from its first body or "
-                "from a second call, bit for bit")
+        bitwise = bitwise_equal(torch, Yk, spmm_tiled_onehot(pg.prep, Xo_p))
+        require(bitwise, f"K7 on the {what} differs from a second call, bit "
+                "for bit")
     ok, err_o = close(Yo.cpu().numpy(), csr_host(r, c, v, (m, m)) @ Xo,
                       1e-5, 1e-5)
     require(ok, f"{what} off scipy (max abs err {err_o})")
@@ -999,8 +1115,8 @@ def spmm_path(torch, sp, dev, m=SPMM_M, m_onehot=SPMM_M, m_3b=CFG3B_M,
     onehot = phase_onehot(torch, sp, dev, reg, dense, m_onehot, m_3b)
     routes = {what: {k: rt[k] for k in ("block_rows", "slots", "err_scipy")}
               for what, rt in onehot["route"].items()}
-    log(f"phase 14 K7: max abs err {onehot['err']!r}; bit for bit with its "
-        f"first body and a second call {onehot['bitwise_k7_simt']}; one_hot "
+    log(f"phase 14 K7: max abs err {onehot['err']!r}; bit for bit with a "
+        f"second call {onehot['bitwise_repeat']}; one_hot "
         f"routes (block rows, slots a block row, err vs scipy) {routes}; "
         f"gather_ell route (Kmax {onehot['ell_kmax']}) err "
         f"{onehot['err_gather_ell']!r} ({time.perf_counter() - t0:.3f} s)")
@@ -1096,8 +1212,7 @@ def phase_band(torch, sp, dev, cfg):
     # bfloat16 rounds A's values; the check allows 2e-2 of max|ref|.
     err["bf16"] = check_coo(Cb, cfg["AAT"], "spgemm_tiled bf16 A A^T", 0.0,
                             2e-2)
-    out = {"C": C, "err": err, "band": {}, "plan": {}, "prep": {},
-           "bitwise_k8_simt": None}
+    out = {"C": C, "err": err, "band": {}, "plan": {}, "prep": {}}
     for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         prep = prepare_tiled_dense(cfg["tl"], dtype=dtype)
         plan = plan_window_spgemm(prep.tcols, prep.tcols, nbc=prep.nbc,
@@ -1112,12 +1227,6 @@ def phase_band(torch, sp, dev, cfg):
                 f"K8 {name}: a band slot with no pair is not exactly zero")
         require(torch.equal(spgemm_window(plan, prep.blocks), band),
                 f"K8 {name}: two calls differ")
-        if band.is_cuda and name == "f32":
-            # One fmaf a k in the first body's order: equal bit for bit.
-            out["bitwise_k8_simt"] = bool(torch.equal(
-                k8_simt(plan, prep.blocks), band))
-            require(out["bitwise_k8_simt"],
-                    "K8 f32 differs from the first K8 body in some bit")
         out["band"][name], out["plan"][name] = band, plan
         out["prep"][name] = prep
     return out
@@ -1169,8 +1278,7 @@ def phase_pairs(torch, sp, dev, cfg, k8):
             ("C C", "bf16", tc["bf16"], None)]
     out = {"err": err, "routes": {"A A^T": routes, "C C": cc_routes,
                                   "C^3": power_routes},
-           "plans": plans, "blocks": {}, "bitwise_k9_k13": {},
-           "bitwise_k9_simt": {}}
+           "plans": plans, "blocks": {}, "bitwise_k9_k13": {}}
     for label, dname, X, oracle in runs:
         plan = plans[label]
         bf16 = dname == "bf16"
@@ -1197,11 +1305,6 @@ def phase_pairs(torch, sp, dev, cfg, k8):
                             k13.blocks), f"K13 {what}: two calls differ")
         require(torch.equal(spgemm_tiled_pairs(X, X, plan).blocks,
                             k9.blocks), f"K9 {what}: two calls differ")
-        if k9.blocks.is_cuda and not bf16:
-            out["bitwise_k9_simt"][what] = bool(torch.equal(
-                k9_simt(X, X, plan), k9.blocks))
-            require(out["bitwise_k9_simt"][what],
-                    f"K9 {what} differs from the first K9 body in some bit")
         out["blocks"][(label, dname)] = X
     return out
 
@@ -1257,8 +1360,8 @@ def spgemm_path(torch, sp, dev, n=CFG4_N) -> dict:
     k8 = phase_band(torch, sp, dev, cfg)
     plan = k8["plan"]["f32"]
     log(f"phase 17 K8: W {plan.W}, live pairs {plan.n_live}, n_dots "
-        f"{plan.n_dots}, band {plan.nbr_pad} x {plan.nband}; f32 == first "
-        f"body bitwise {k8['bitwise_k8_simt']}; max abs err {k8['err']} "
+        f"{plan.n_dots}, band {plan.nbr_pad} x {plan.nband}; max abs err "
+        f"{k8['err']} "
         f"({time.perf_counter() - t0:.3f} s)")
     t0 = time.perf_counter()
     pairs = phase_pairs(torch, sp, dev, cfg, k8)
@@ -1266,8 +1369,7 @@ def spgemm_path(torch, sp, dev, n=CFG4_N) -> dict:
     log(f"phase 18 K9/K13: pair plans A A^T {pt['A A^T'].n_pairs} pairs -> "
         f"{pt['A A^T'].n_out_tiles} tiles, C C {pt['C C'].n_pairs} pairs -> "
         f"{pt['C C'].n_out_tiles} tiles; routes {pairs['routes']}; K13 == "
-        f"K9 bitwise {pairs['bitwise_k9_k13']}; K9 == first body bitwise "
-        f"{pairs['bitwise_k9_simt']}; max abs err {pairs['err']} "
+        f"K9 bitwise {pairs['bitwise_k9_k13']}; max abs err {pairs['err']} "
         f"({time.perf_counter() - t0:.3f} s)")
     t0 = time.perf_counter()
     esc = phase_esc(torch, sp, dev, cfg)
@@ -1488,8 +1590,9 @@ def phase_sort(torch, dev, nblk):
         sync(torch, dev)
         same_up_to_ties(torch, got, ref, nk, what)
         if dev != "cpu":
-            bitwise[what] = bitwise_equal(torch, got, k12_simt(arrays, nk))
-            require(bitwise[what], f"K12 {what}: differs from its first body "
+            bitwise[what] = bitwise_equal(
+                torch, got, sort_blocks(arrays, num_keys=nk))
+            require(bitwise[what], f"K12 {what}: differs from a second call "
                     "bit for bit (keys or payloads)")
             # The arrays K12 sorts: these, or the keys and a position.
             na = (len(arrays) if len(arrays) <= MAX_ARRAYS and all(
@@ -1508,7 +1611,7 @@ def phase_sort(torch, dev, nblk):
                 f"K12 sort_blocks_stable (key_bound {bound}) is not the "
                 "stable sort")
     return {"main": main, "cases": [c[0] for c in cases],
-            "bitwise_k12_simt": bitwise, "geometry": geometry}
+            "bitwise_repeat": bitwise, "geometry": geometry}
 
 
 def unstructured_path(torch, sp, dev, n=N, heavy_n=HEAVY_N,
@@ -1537,8 +1640,8 @@ def unstructured_path(torch, sp, dev, n=N, heavy_n=HEAVY_N,
     t0 = time.perf_counter()
     srt = phase_sort(torch, dev, sort_nblk)
     log(f"phase 24 K12: {srt['cases']}, stable packed and not: keys exact, "
-        f"payloads by runs; bit for bit with its first body "
-        f"{srt['bitwise_k12_simt']}; (C, E, threads) as the kernel reports "
+        f"payloads by runs; bit for bit with a second call "
+        f"{srt['bitwise_repeat']}; (C, E, threads) as the kernel reports "
         f"them, equal to block_sort_geometry's {srt['geometry']} "
         f"({time.perf_counter() - t0:.3f} s)")
     return {"c2": c2, "shuffle": sh, "segsum": seg, "sort": srt}
@@ -1612,74 +1715,6 @@ def torch_csr(torch, M, dev):
         check_invariants=True)
 
 
-def k8_simt(plan, a_blocks, b_blocks=None):
-    """The first K8 (``sps_spgemm_window_simt``: one CTA a band slot,
-    synchronous 16-deep staging, SIMT FMAs in both types) on the arguments
-    of ``spgemm_window``: the timing yardstick and the float32 bit-for-bit
-    reference of the ring. Used nowhere in the port."""
-    import torch
-    from spsparse_torch import backend
-    from spsparse_torch.ops.tiled_spmm import check_blocks
-
-    b_blocks = a_blocks if b_blocks is None else b_blocks
-    t = plan.tensors(a_blocks.device)
-    NB = plan.nband
-    band = torch.empty((plan.nbr_pad, NB, TILE_SIDE, TILE_SIDE),
-                       dtype=torch.float32, device=a_blocks.device)
-    err = backend.load_kernels().sps_spgemm_window_simt(
-        check_blocks(a_blocks, "A"), a_blocks.data_ptr(),
-        b_blocks.data_ptr(), t["cnt"].data_ptr(), t["pt"].data_ptr(),
-        t["pu"].data_ptr(), t["prefix"].data_ptr(), plan.nbr_pad * NB, NB,
-        plan.W, sum(plan.pmax_band), a_blocks.shape[0], b_blocks.shape[0],
-        plan.rt_a, plan.rt_b, band.data_ptr(),
-        backend.current_stream(a_blocks.device))
-    backend.check(err, "sps_spgemm_window_simt")
-    return band
-
-
-def k9_simt(A, B, plan):
-    """The first K9 (``sps_spgemm_pairs_simt``: one CTA an output tile,
-    synchronous 16-deep staging, SIMT FMAs in both types) on the arguments
-    of ``spgemm_tiled_pairs``; returns the output blocks. The timing
-    yardstick and the float32 bit-for-bit reference of the ring. Used
-    nowhere in the port."""
-    import torch
-    from spsparse_torch import backend
-    from spsparse_torch.ops.tiled_spmm import _DTYPE_CODE
-
-    t = plan.tensors(A.device)
-    out = torch.empty((plan.n_out_tiles, TILE_SIDE, TILE_SIDE),
-                      dtype=torch.float32, device=A.device)
-    err = backend.load_kernels().sps_spgemm_pairs_simt(
-        _DTYPE_CODE[A.blocks.dtype], int(plan.transpose_b),
-        A.blocks.data_ptr(), B.blocks.data_ptr(), t["pa"].data_ptr(),
-        t["pb"].data_ptr(), t["pstart"].data_ptr(), plan.n_out_tiles,
-        out.data_ptr(), backend.current_stream(A.device))
-    backend.check(err, "sps_spgemm_pairs_simt")
-    return out
-
-
-def k7_simt(prep, X):
-    """The first K7 (``sps_tiled_onehot_simt``: one CTA of 64 threads a
-    block row and 64 columns, the Y tile in shared memory, X read from
-    device memory entry by entry) on the arguments of
-    ``spmm_tiled_onehot``: the timing yardstick and the bit-for-bit
-    reference of the staged kernel. Used nowhere in the port."""
-    import torch
-    from spsparse_torch import backend
-
-    M = prep.shape[0]
-    K, N = X.shape
-    Y = torch.empty((M, N), dtype=torch.float32, device=X.device)
-    err = backend.load_kernels().sps_tiled_onehot_simt(
-        prep.tcols.data_ptr(), prep.rows.data_ptr(), prep.cols.data_ptr(),
-        prep.vals.data_ptr(), -(-M // TILE_SIDE), prep.tiles_per_row,
-        prep.tile_cap, prep.nbc, X.data_ptr(), K, N, Y.data_ptr(), M,
-        backend.current_stream(X.device))
-    backend.check(err, "sps_tiled_onehot_simt")
-    return Y
-
-
 def k12_geometry(n: int, n_arrays: int, num_keys: int) -> tuple:
     """``(C, E, threads)`` that ``sps_block_sort`` launches for blocks of
     ``n`` elements, as the library reports them
@@ -1694,38 +1729,6 @@ def k12_geometry(n: int, n_arrays: int, num_keys: int) -> tuple:
         n_arrays, num_keys, n, ctypes.cast(out, ctypes.c_void_p)),
         "sps_block_sort_geometry")
     return tuple(int(v) for v in out)
-
-
-def k12_simt(arrays, num_keys: int):
-    """The first K12 (``sps_block_sort_simt``: every stage in shared
-    memory, a barrier after each) dispatched as ``sort_blocks`` dispatches
-    K12 (float32 keys and more than 8 arrays through a position payload
-    and a gather): the timing yardstick and the bit-for-bit reference of
-    the register kernel. Used nowhere in the port."""
-    import ctypes
-
-    import torch
-    from spsparse_torch import backend
-    from spsparse_torch.ops.block_sort import MAX_ARRAYS, sort_by_permutation
-
-    def launch(arrs, nk):
-        nblk, R, Lx = arrs[0].shape
-        ins = [a.contiguous() for a in arrs]
-        outs = [torch.empty_like(a) for a in ins]
-        ip = (ctypes.c_void_p * len(ins))(*[a.data_ptr() for a in ins])
-        op = (ctypes.c_void_p * len(outs))(*[a.data_ptr() for a in outs])
-        err = backend.load_kernels().sps_block_sort_simt(
-            ctypes.cast(ip, ctypes.c_void_p), ctypes.cast(op, ctypes.c_void_p),
-            len(ins), nk, nblk, R * Lx, backend.current_stream(ins[0].device))
-        backend.check(err, "sps_block_sort_simt")
-        return tuple(outs)
-
-    arrays = tuple(arrays)
-    if (all(a.dtype == torch.int32 for a in arrays[:num_keys])
-            and len(arrays) <= MAX_ARRAYS
-            and all(a.element_size() == 4 for a in arrays)):
-        return launch(arrays, num_keys)
-    return sort_by_permutation(arrays, num_keys, launch)
 
 
 def bitwise_equal(torch, got, want) -> bool:
@@ -1772,6 +1775,44 @@ def tile_counts(torch, prep) -> tuple[int, int]:
     return int(tc.numel()), int(torch.unique(tc).numel())
 
 
+def cg_timings(torch, cases: dict, launches: dict) -> list[dict]:
+    """Rows of the kernels line for K4 beyond S in float32: S with
+    bfloat16 diagonals, the device-memory mode at 4n rows and n = 2^14,
+    where the two grid-wide exchanges of an iteration take most of its
+    time, each per iteration against its plain version in turns. The bound
+    is the diagonals once an iteration (stored slots times 4 or 2 bytes)."""
+    from spsparse_torch.ops import cg_solve_dia, cg_solve_dia_reference
+
+    rows = []
+    for what, case in cases.items():
+        if not case["timed"]:
+            continue
+        prep, b = case["prep"], case["b"]
+        ms = per_iteration_ms(torch, {
+            "plain": lambda it: cg_solve_dia_reference(prep, b, iters=it,
+                                                       shift=SHIFT),
+            "kernel": lambda it: cg_solve_dia(prep, b, iters=it,
+                                              shift=SHIFT)})
+        n = prep.shape[0]
+        stored = sum(n - abs(o) for o in prep.offsets)
+        item = prep.data.element_size()
+        b_ms, b_by = bound_ms(stored * item, 2 * stored + 2 * n)
+        row = dict(name="cg_solve_dia",
+                   dtype="bf16" if item == 2 else "f32",
+                   **KERNELS["cg_solve_dia"],
+                   launches=launches["cg_solve_dia"],
+                   max_abs_err=case["err"], ms=ms["kernel"],
+                   plain_ms=ms["plain"], bound_ms=b_ms, bound_by=b_by,
+                   library_ms=None, matrix=what, n=n, nnz=stored,
+                   geometry=case.get("geometry"))
+        if ms["kernel"] < b_ms:
+            row["note"] = (f"under the device-memory bound: the "
+                           f"{stored * item / 1e6:.1f} MB of diagonals stay "
+                           "in the 50 MB L2 from one iteration to the next")
+        rows.append(row)
+    return rows
+
+
 def spmm_timings(torch, spmm, launches: dict) -> list[dict]:
     """Rows of the kernels line for K5, K6 and K7 at config 3 (K7 also on
     its tiles shuffled), and for K7 on the two one_hot route layouts (the
@@ -1813,10 +1854,6 @@ def spmm_timings(torch, spmm, launches: dict) -> list[dict]:
         y_bytes = prep.shape[0] * n_rhs * 4
         extra = {}
         if name == "spmm_tiled_onehot":
-            # The first SIMT body in turns with the staged kernel.
-            extra["ms_again"], extra["prior_design_ms"] = compare_times(
-                torch, lambda: kernel(prep, Xk), lambda: k7_simt(prep, Xk),
-                **timing_kw)
             extra["ptxas"] = ptxas_of(("onehot_kernel", "onehot_small"))
             # Every slot's value of the live tiles (a padding slot is known
             # only by its zero value), each entry's row and column, and the
@@ -1936,8 +1973,7 @@ def spgemm_timings(torch, spg, launches: dict) -> tuple[list[dict], dict]:
     output tiles once. ``bound_ms`` takes the operations of the occupied
     (warp block, k-chunk) units (:func:`occupied_flops`), the work that
     the kernels cannot skip; ``dense_bound_ms`` 2*128^3 operations a
-    pair. K8 and K9 are timed in turns against their first SIMT bodies,
-    K13 against K9. The library yardstick is cuSPARSE's CSR x CSR SpGEMM of
+    pair. K13 is timed in turns against K9. The library yardstick is cuSPARSE's CSR x CSR SpGEMM of
     the same operands, extraction of the output included."""
     from spsparse_torch.ops import (plan_esc, spgemm_aat, spgemm_planned_vals,
                                     spgemm_tiled, spgemm_tiled_pairs,
@@ -1975,9 +2011,6 @@ def spgemm_timings(torch, spg, launches: dict) -> tuple[list[dict], dict]:
         ms, plain_ms = compare_times(
             torch, lambda: spgemm_window(plan, prep.blocks),
             lambda: spgemm_window_reference(plan, prep.blocks), **kw)
-        ms_again, prior_ms = compare_times(
-            torch, lambda: spgemm_window(plan, prep.blocks),
-            lambda: k8_simt(plan, prep.blocks), **kw)
         live = int((prep.tcols < prep.nbc).sum())
         nbytes = (live * TILE_ELEMS * prep.blocks.element_size()
                   + plan.nbr_pad * plan.nband * TILE_ELEMS * 4)
@@ -1987,8 +2020,7 @@ def spgemm_timings(torch, spg, launches: dict) -> tuple[list[dict], dict]:
                                True, dname == "bf16")
         row("spgemm_window", dname, "config 4 A A^T (band)", ms, plain_ms,
             nbytes, flops, plan.n_live * flops_pair,
-            k8["err"][f"band_{dname}"], "A A^T", ms_again=ms_again,
-            prior_design_ms=prior_ms)
+            k8["err"][f"band_{dname}"], "A A^T")
     for label, dname in (("A A^T", "f32"), ("A A^T", "bf16"),
                          ("C C", "f32"), ("C C", "bf16")):
         plan = pairs["plans"][label]
@@ -2011,10 +2043,6 @@ def spgemm_timings(torch, spg, launches: dict) -> tuple[list[dict], dict]:
                 extra["ms_again"], extra["k9_ms"] = compare_times(
                     torch, lambda: fn(X, X, plan),
                     lambda: spgemm_tiled_pairs(X, X, plan), **kw)
-            else:
-                extra["ms_again"], extra["prior_design_ms"] = compare_times(
-                    torch, lambda: fn(X, X, plan),
-                    lambda: k9_simt(X, X, plan), **kw)
             row(name, dname, f"config 4 {label} (pair plan)", ms, plain_ms,
                 nbytes, flops, plan.n_pairs * flops_pair,
                 pairs["err"][f"{label} {dname}"], label, **extra)
@@ -2113,9 +2141,6 @@ def unstructured_timings(torch, un, launches: dict) -> tuple[list, dict]:
     ms, plain_ms = compare_times(
         torch, lambda: sort_blocks((keys, pay)),
         lambda: sort_blocks_reference((keys, pay)), reps=7, inner=5)
-    ms_again, prior_ms = compare_times(
-        torch, lambda: sort_blocks((keys, pay)),
-        lambda: k12_simt((keys, pay), 1), reps=7, inner=5)
     flat_k, flat_p = keys.reshape(nblk, -1), pay.reshape(nblk, -1)
 
     def library_sort(stable):
@@ -2131,7 +2156,6 @@ def unstructured_timings(torch, un, launches: dict) -> tuple[list, dict]:
         ms, plain_ms, 2 * 2 * 4 * nel, stages * (nel // 2) * (1 + 2 * 2),
         0.0, sort_lib, dtype="i32 key, f32 payload",
         library_stable_ms=sort_lib_stable, n=nel, nnz=nel,
-        ms_again=ms_again, prior_design_ms=prior_ms,
         ptxas=ptxas_of(("reg17sort_chunk_kernel",)))
     ends = {
         "spmv_shuffle (best_spmv) ms": float(np.median(time_ms(
@@ -2357,12 +2381,15 @@ def main() -> int:
     # Per iteration: the diagonals once (b in and x out are per solve and
     # cancel in the difference); 2 flops per stored slot plus the shift.
     b_ms, b_by = bound_ms(nnz * 4, 2 * nnz + 2 * N)
+    k4_ptxas = ptxas_of(("cg_kernel",))
     rows.append(dict(name="cg_solve_dia", dtype="f32",
                      **KERNELS["cg_solve_dia"],
                      launches=launches["cg_solve_dia"],
                      max_abs_err=solve["cg"]["err"], ms=cg_ms["kernel"],
                      plain_ms=cg_ms["plain"], bound_ms=b_ms, bound_by=b_by,
-                     library_ms=None))
+                     library_ms=None, matrix="S = (B + B^T)/2",
+                     geometry=solve["cg"]["geometry"], ptxas=k4_ptxas))
+    rows += cg_timings(torch, solve["cg"]["cases"], launches)
     rows += spmm_timings(torch, spmm, launches)
     spgemm_rows, spgemm_ends = spgemm_timings(torch, spg, launches)
     rows += spgemm_rows
@@ -2379,6 +2406,7 @@ def main() -> int:
             "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "library_ms": row["library_ms"],
             "prior_design_ms": row.get("prior_design_ms"),
+            "geometry": row.get("geometry"), "note": row.get("note"),
             "k9_ms": row.get("k9_ms"),
             "dense_bound_ms": row.get("dense_bound_ms"),
             "roofline_share": row["bound_ms"] / row["ms"],

@@ -59,28 +59,23 @@ _SIGNATURES = {
     "sps_dia_max_diags": [],
     "sps_dia_mrhs": [_I, _P, _LL, _LL, _LL, _I, _P, _I, _P, _LL, _P, _LL,
                      _P],
-    "sps_dia_cg": [_I, _P, _LL, _LL, _I, _P, _F, _P, _P, _P, _P, _P, _P, _P,
-                   _LL, _P, _P, _I, _P],
+    "sps_dia_cg": [_I, _P, _LL, _LL, _I, _P, _F, _P, _P, _P, _LL, _P, _I,
+                   _P],
+    "sps_dia_cg_geometry": [_I, _LL, _P],
     "sps_tiled_dense": [_I, _P, _P, _I, _I, _I, _P, _LL, _I, _P, _LL, _P],
     "sps_tiled_window": [_I, _P, _P, _P, _I, _I, _I, _P, _LL, _I, _P, _LL,
                          _P],
     "sps_tiled_onehot": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _LL, _I, _P, _LL,
                          _P],
-    "sps_tiled_onehot_simt": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _LL, _I, _P,
-                              _LL, _P],
     "sps_spgemm_pairs": [_I, _I, _P, _P, _P, _P, _P, _I, _P, _P],
     "sps_spgemm_pairs_stream": [_I, _I, _P, _P, _P, _P, _P, _I, _P, _P],
     "sps_spgemm_window": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                           _P, _P],
-    "sps_spgemm_pairs_simt": [_I, _I, _P, _P, _P, _P, _P, _I, _P, _P],
-    "sps_spgemm_window_simt": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                               _I, _I, _I, _P, _P],
     "sps_segsum": [_P, _P, _LL, _I, _P, _P],
     "sps_shuffle_gather": [_I, _P, _P, _P, _LL, _LL, _P, _P],
     "sps_shuffle_gather_scatter": [_I, _P, _P, _P, _P, _P, _LL, _LL, _P, _LL,
                                    _LL, _P, _P],
     "sps_block_sort": [_P, _P, _I, _I, _LL, _LL, _P],
-    "sps_block_sort_simt": [_P, _P, _I, _I, _LL, _LL, _P],
     "sps_block_sort_geometry": [_I, _I, _LL, _P],
 }
 

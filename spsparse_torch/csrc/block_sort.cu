@@ -45,18 +45,14 @@
 // pair) and finishes the span's short stages in a chunk again: the bitonic
 // network allows exactly this split. The compare-exchanges are the
 // network's, in its order, whatever the placement, so the result (payloads
-// included) is the first body's bit for bit.
+// included) is bit for bit that of the first body, which ran every stage in
+// shared memory (since deleted).
 //
 // Bound. Each array is read once and written once (8 bytes an element and
 // array) when the block fits; every global pass adds a read and a write.
 // Compares and selects: log2(n)(log2(n)+1)/2 stages of n/2 pairs, a few
 // integer operations a pair and array, on the SIMT units: at (64, 128)
 // blocks the bytes bound it.
-//
-// The first body (all stages in shared memory, one compare-exchange a thread
-// per step and a barrier after each stage) stays as sps_block_sort_simt,
-// the new body's timing yardstick and bit-for-bit reference; nothing in the
-// port calls it.
 //
 // The entry points return cudaGetLastError() after their launches.
 
@@ -121,101 +117,6 @@ __global__ void __launch_bounds__(256)
     }
   }
 }
-
-namespace simt {
-
-// Stages in shared memory over a chunk of C elements of each block: spans
-// span_first..span_last (doubling), each from distance min(span, C)/2 down
-// to 1. base: the chunk's first element index within its block. NK and NA
-// fix num_keys and n_arrays at compile time (0: given at run time), so that
-// the loops over the arrays unroll.
-template <int NK, int NA>
-__global__ void __launch_bounds__(kMaxThreads)
-    sort_chunk_kernel(Arrays arr, int n_arrays, int num_keys, long long n,
-                      int C, long long span_first, long long span_last) {
-  extern __shared__ int smem[];
-  if (NK) num_keys = NK;
-  if (NA) n_arrays = NA;
-  const long long chunks = n / C;
-  const long long blk = blockIdx.x / chunks;
-  const long long base = (blockIdx.x % chunks) * C;
-  const long long g0 = blk * n + base;
-#pragma unroll
-  for (int a = 0; a < (NA ? NA : kMaxArrays); ++a) {
-    if (a >= n_arrays) break;
-    for (int i = threadIdx.x; i < C; i += blockDim.x)
-      smem[a * C + i] = arr.in[a][g0 + i];
-  }
-  __syncthreads();
-  const auto key = [&](int k, int i) { return smem[k * C + i]; };
-  for (long long span = span_first; span <= span_last; span *= 2) {
-    const long long mask = span < n ? span : 2 * n;
-    for (int d = (int)((span < C ? span : C) / 2); d >= 1; d /= 2) {
-      for (int p = threadIdx.x; p < C / 2; p += blockDim.x) {
-        const int i = ((p & ~(d - 1)) << 1) + (p & (d - 1));
-        const int j = i + d;
-        const bool up = ((base + i) & mask) == 0;
-        if (swap_pair<NK>(key, i, j, num_keys, up)) {
-#pragma unroll
-          for (int a = 0; a < (NA ? NA : kMaxArrays); ++a) {
-            if (a >= n_arrays) break;
-            const int t = smem[a * C + i];
-            smem[a * C + i] = smem[a * C + j];
-            smem[a * C + j] = t;
-          }
-        }
-      }
-      __syncthreads();
-    }
-  }
-#pragma unroll
-  for (int a = 0; a < (NA ? NA : kMaxArrays); ++a) {
-    if (a >= n_arrays) break;
-    for (int i = threadIdx.x; i < C; i += blockDim.x)
-      arr.out[a][g0 + i] = smem[a * C + i];
-  }
-}
-
-// The launch sequence of one sort, for kernels specialised on NK / NA.
-template <int NK, int NA>
-cudaError_t run(Arrays arr, int n_arrays, int num_keys, long long nblk,
-                long long n, long long C, cudaStream_t s) {
-  const size_t smem = (size_t)(C * n_arrays * 4);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        sort_chunk_kernel<NK, NA>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  const int threads = (int)(C / 2 < kMaxThreads ? C / 2 : kMaxThreads);
-  const long long ctas = nblk * (n / C);
-  if (ctas > 0x7fffffffLL) return cudaErrorInvalidValue;
-  // Sort each chunk (every span up to C), reading the inputs.
-  sort_chunk_kernel<NK, NA><<<(unsigned)ctas, threads, smem, s>>>(
-      arr, n_arrays, num_keys, n, (int)C, 2, C);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  // From here on the stages run in place on the outputs.
-  for (int a = 0; a < n_arrays; ++a) arr.in[a] = arr.out[a];
-  long long gblocks = (nblk * (n / 2) + 255) / 256;
-  if (gblocks > (1LL << 30)) gblocks = 1LL << 30;
-  for (long long span = 2 * C; span <= n; span *= 2) {
-    const long long mask = span < n ? span : 2 * n;
-    for (long long d = span / 2; d >= C; d /= 2) {
-      sort_global_stage_kernel<NK, NA><<<(unsigned)gblocks, 256, 0, s>>>(
-          arr, n_arrays, num_keys, n, nblk, d, mask);
-      err = cudaGetLastError();
-      if (err != cudaSuccess) return err;
-    }
-    sort_chunk_kernel<NK, NA><<<(unsigned)ctas, threads, smem, s>>>(
-        arr, n_arrays, num_keys, n, (int)C, span, span);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
-  return cudaGetLastError();
-}
-
-}  // namespace simt
 
 // ---- K12: the chunk in registers, warp shuffles, few exchanges ----------
 namespace reg {
@@ -571,22 +472,6 @@ int sps_block_sort_geometry(int n_arrays, int num_keys, long long n,
       num_keys > n_arrays || n < 128 || (n & (n - 1)) != 0)
     return (int)cudaErrorInvalidValue;
   SPS_K12_DISPATCH(reg::geometry_of, n, static_cast<long long*>(out))
-}
-
-// The first body of K12 on the same arguments (any n >= 2): the timing
-// yardstick and bit-for-bit reference of sps_block_sort; nothing in the
-// port calls it.
-int sps_block_sort_simt(const void* ins, const void* outs, int n_arrays,
-                        int num_keys, long long nblk, long long n,
-                        void* stream) {
-  Arrays arr;
-  if (!arrays_of(ins, outs, n_arrays, num_keys, nblk, n, &arr))
-    return (int)cudaErrorInvalidValue;
-  if (nblk == 0) return (int)cudaSuccess;
-  long long C = n;
-  while (C > 2 && C * n_arrays * 4 > kSmemBudget) C /= 2;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  SPS_K12_DISPATCH(simt::run, nblk, n, C, s)
 }
 
 #undef SPS_K12_DISPATCH

@@ -68,7 +68,8 @@
 // SIMT FMAs in 32-deep chunks, warp w owning the 32 x 64 output block at
 // rows (w % 4) * 32, columns (w / 4) * 64, an 8 x 8 register tile a lane;
 // each output element takes one fmaf a k, pairs in plan order, k ascending,
-// so float32 K8, K9 and K13 equal the first SIMT bodies bit for bit.
+// so float32 K8, K9 and K13 equal each other bit for bit (and the first,
+// synchronously staged SIMT bodies, since deleted).
 //
 // Exact skipping of empty warp blocks. Each warp ORs the magnitude bits of
 // its own A rows and its own B slice (B^T rows for A B^T, the k x n slice
@@ -82,175 +83,15 @@
 // underflowed product can make negative. NaN and Inf propagate as in the
 // plain version. At bench config 4 about 89% of the float32 (warp block,
 // chunk) units are skipped.
-//
-// The first K8 and K9 bodies (one CTA a slot or tile, synchronous 16-deep
-// staging, both types on SIMT FMAs through tiled_common.cuh's fma_chunk)
-// stay as sps_spgemm_window_simt and sps_spgemm_pairs_simt, the timing
-// yardsticks of the ring: chip_smoke.py and profile_kernels.py call them,
-// nothing in the port does.
 
 #include "tiled_common.cuh"
 #include "tiled_dense.cuh"
 
 namespace {
 
-using sps_tiled::kAStride;
-using sps_tiled::kBK;
-using sps_tiled::kThreads;
 using sps_tiled::kTile;
-using sps_tiled::kTM;
 
 constexpr long long kTileElems = (long long)kTile * kTile;
-constexpr int kTN = kTile / 16;  // accumulator columns a thread
-
-// --- The first SIMT bodies of K8 and K9 (timing yardsticks) -----------------
-
-__device__ __forceinline__ void widen8(const uint4& raw, float (&v)[8]) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    const float2 f = __bfloat1622float2(h[c]);
-    v[2 * c] = f.x;
-    v[2 * c + 1] = f.y;
-  }
-}
-
-// S[k][r] = tile[r*128 + k0 + k] for r < 128, k < 16: each thread loads 16
-// bytes of one row and stores them transposed.
-__device__ __forceinline__ void stage_rows(const float* __restrict__ tile,
-                                           int k0, float (*S)[kAStride]) {
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    const int idx = threadIdx.x + j * kThreads;
-    const int r = idx >> 2, q = (idx & 3) * 4;
-    const float4 v =
-        __ldg(reinterpret_cast<const float4*>(tile + r * kTile + k0 + q));
-    S[q][r] = v.x;
-    S[q + 1][r] = v.y;
-    S[q + 2][r] = v.z;
-    S[q + 3][r] = v.w;
-  }
-}
-
-__device__ __forceinline__ void stage_rows(
-    const __nv_bfloat16* __restrict__ tile, int k0, float (*S)[kAStride]) {
-  const int r = threadIdx.x >> 1, q = (threadIdx.x & 1) * 8;
-  float v[8];
-  widen8(__ldg(reinterpret_cast<const uint4*>(tile + r * kTile + k0 + q)),
-         v);
-#pragma unroll
-  for (int c = 0; c < 8; ++c) S[q + c][r] = v[c];
-}
-
-// S[k][n] = tile[(k0 + k)*128 + n]: whole rows of the tile, as they are.
-__device__ __forceinline__ void stage_cols(const float* __restrict__ tile,
-                                           int k0, float (*S)[kAStride]) {
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    const int idx = threadIdx.x + j * kThreads;
-    const int k = idx >> 5, n = (idx & 31) * 4;
-    *reinterpret_cast<float4*>(&S[k][n]) =
-        __ldg(reinterpret_cast<const float4*>(tile + (k0 + k) * kTile + n));
-  }
-}
-
-__device__ __forceinline__ void stage_cols(
-    const __nv_bfloat16* __restrict__ tile, int k0, float (*S)[kAStride]) {
-  const int k = threadIdx.x >> 4, n = (threadIdx.x & 15) * 8;
-  float v[8];
-  widen8(__ldg(reinterpret_cast<const uint4*>(tile + (k0 + k) * kTile + n)),
-         v);
-  *reinterpret_cast<float4*>(&S[k][n]) = make_float4(v[0], v[1], v[2], v[3]);
-  *reinterpret_cast<float4*>(&S[k][n + 4]) =
-      make_float4(v[4], v[5], v[6], v[7]);
-}
-
-// acc += a . b (b^T when kTransB), k ascending, through shared memory.
-template <typename T, bool kTransB>
-__device__ __forceinline__ void add_pair(const T* __restrict__ a,
-                                         const T* __restrict__ b,
-                                         float (*As)[kAStride],
-                                         float (*Bs)[kAStride], int tx,
-                                         int ty, float (&acc)[kTM][kTN]) {
-  for (int k0 = 0; k0 < kTile; k0 += kBK) {
-    stage_rows(a, k0, As);
-    if constexpr (kTransB) {
-      stage_rows(b, k0, Bs);
-    } else {
-      stage_cols(b, k0, Bs);
-    }
-    __syncthreads();
-    sps_tiled::fma_chunk<kTile, kAStride>(As, Bs, tx, ty, acc);
-    __syncthreads();
-  }
-}
-
-__device__ __forceinline__ void zero(float (&acc)[kTM][kTN]) {
-#pragma unroll
-  for (int i = 0; i < kTM; ++i)
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) acc[i][j] = 0.f;
-}
-
-// The CTA's tile in K6's first register layout (out_col<128>), 16 bytes a
-// store.
-__device__ __forceinline__ void store_tile(float* __restrict__ out,
-                                           const float (&acc)[kTM][kTN],
-                                           int tx, int ty) {
-#pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    float* row = out + (ty * kTM + i) * kTile + tx * 4;
-#pragma unroll
-    for (int g = 0; g < 2; ++g)
-      *reinterpret_cast<float4*>(row + g * 64) =
-          make_float4(acc[i][4 * g], acc[i][4 * g + 1], acc[i][4 * g + 2],
-                      acc[i][4 * g + 3]);
-  }
-}
-
-// The first K9: one CTA per output tile t.
-template <typename T, bool kTransB>
-__global__ void __launch_bounds__(kThreads)
-    pairs_simt_kernel(const T* __restrict__ a, const T* __restrict__ b,
-                      const int* __restrict__ pa, const int* __restrict__ pb,
-                      const int* __restrict__ pstart,
-                      float* __restrict__ out) {
-  __shared__ __align__(16) float As[kBK][kAStride];
-  __shared__ __align__(16) float Bs[kBK][kAStride];
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int t = blockIdx.x;
-  float acc[kTM][kTN];
-  zero(acc);
-  for (int p = pstart[t]; p < pstart[t + 1]; ++p)
-    add_pair<T, kTransB>(a + pa[p] * kTileElems, b + pb[p] * kTileElems, As,
-                         Bs, tx, ty, acc);
-  store_tile(out + t * kTileElems, acc, tx, ty);
-}
-
-// The first K8: one CTA per band slot, slots in (i, b) order.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    window_simt_kernel(const T* __restrict__ a, const T* __restrict__ b,
-                       const int* __restrict__ cnt, const int* __restrict__ pt,
-                       const int* __restrict__ pu,
-                       const int* __restrict__ prefix, int nb, int w, int s,
-                       int nbr_a, int nbr_b, int rt_a, int rt_b,
-                       float* __restrict__ out) {
-  __shared__ __align__(16) float As[kBK][kAStride];
-  __shared__ __align__(16) float Bs[kBK][kAStride];
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int slot = blockIdx.x;
-  const int i = slot / nb, band = slot % nb, j = i + band - w;
-  const int n = (i < nbr_a && j >= 0 && j < nbr_b) ? cnt[slot] : 0;
-  const long long q0 = (long long)i * s + prefix[band];
-  float acc[kTM][kTN];
-  zero(acc);
-  for (int p = 0; p < n; ++p)
-    add_pair<T, true>(a + ((long long)i * rt_a + pt[q0 + p]) * kTileElems,
-                      b + ((long long)j * rt_b + pu[q0 + p]) * kTileElems, As,
-                      Bs, tx, ty, acc);
-  store_tile(out + slot * kTileElems, acc, tx, ty);
-}
 
 // --- The ring ----------------------------------------------------------------
 // A stage holds the k-chunk [k0, k0 + kBK) of one pair: A's 128 x kBK chunk
@@ -746,17 +587,6 @@ int dispatch_pairs(int dtype, int transpose_b, const void* a, const void* b,
   return (int)cudaErrorInvalidValue;
 }
 
-template <typename T, bool kTransB>
-int launch_pairs_simt(const void* a, const void* b, const void* pa,
-                      const void* pb, const void* pstart, int n_out,
-                      void* out, cudaStream_t s) {
-  pairs_simt_kernel<T, kTransB><<<n_out, kThreads, 0, s>>>(
-      static_cast<const T*>(a), static_cast<const T*>(b),
-      static_cast<const int*>(pa), static_cast<const int*>(pb),
-      static_cast<const int*>(pstart), static_cast<float*>(out));
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
@@ -805,59 +635,6 @@ int sps_spgemm_window(int dtype, const void* a, const void* b,
     return launch_ring<__nv_bfloat16, true, false>(a, b, pairs, nslots, out,
                                                    st);
   return (int)cudaErrorInvalidValue;
-}
-
-// The first K9 (timing yardstick), the same arguments as sps_spgemm_pairs.
-int sps_spgemm_pairs_simt(int dtype, int transpose_b, const void* a,
-                          const void* b, const void* pa, const void* pb,
-                          const void* pstart, int n_out, void* out,
-                          void* stream) {
-  if (n_out <= 0) return (int)cudaSuccess;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return transpose_b ? launch_pairs_simt<float, true>(a, b, pa, pb, pstart,
-                                                        n_out, out, s)
-                       : launch_pairs_simt<float, false>(a, b, pa, pb,
-                                                         pstart, n_out, out,
-                                                         s);
-  if (dtype == 1)
-    return transpose_b
-               ? launch_pairs_simt<__nv_bfloat16, true>(a, b, pa, pb, pstart,
-                                                        n_out, out, s)
-               : launch_pairs_simt<__nv_bfloat16, false>(a, b, pa, pb,
-                                                         pstart, n_out, out,
-                                                         s);
-  return (int)cudaErrorInvalidValue;
-}
-
-// The first K8 (timing yardstick): the band from cnt (nslots,) instead of
-// slot_pstart, with A's and B's block rows nbr_a, nbr_b.
-int sps_spgemm_window_simt(int dtype, const void* a, const void* b,
-                           const void* cnt, const void* pt, const void* pu,
-                           const void* prefix, int nslots, int nb, int w,
-                           int s, int nbr_a, int nbr_b, int rt_a, int rt_b,
-                           void* out, void* stream) {
-  if (nslots <= 0) return (int)cudaSuccess;
-  if (nb != 2 * w + 1) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int* C = static_cast<const int*>(cnt);
-  const int* PT = static_cast<const int*>(pt);
-  const int* PU = static_cast<const int*>(pu);
-  const int* PF = static_cast<const int*>(prefix);
-  float* O = static_cast<float*>(out);
-  if (dtype == 0) {
-    window_simt_kernel<float><<<nslots, kThreads, 0, st>>>(
-        static_cast<const float*>(a), static_cast<const float*>(b), C, PT,
-        PU, PF, nb, w, s, nbr_a, nbr_b, rt_a, rt_b, O);
-  } else if (dtype == 1) {
-    window_simt_kernel<__nv_bfloat16><<<nslots, kThreads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(a),
-        static_cast<const __nv_bfloat16*>(b), C, PT, PU, PF, nb, w, s, nbr_a,
-        nbr_b, rt_a, rt_b, O);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -62,13 +62,9 @@
 //
 // Summation order in both: every output element receives one fmaf(val, x,
 // y) per nonzero entry, starting from 0, over the live tiles in slot order
-// and the entries of each in entry order, as the first SIMT body did; so
-// they agree with it bit for bit, and results repeat from run to run.
-//
-// The first SIMT body (one CTA of 64 threads a block row and 64 columns,
-// the Y tile in shared memory, X read from device memory entry by entry)
-// stays as sps_tiled_onehot_simt, the new body's timing yardstick and its
-// bit-for-bit reference; nothing in the port calls it.
+// and the entries of each in entry order (the order of the first, SIMT,
+// body, since deleted); so the two kernels agree bit for bit, and results
+// repeat from run to run.
 
 #include "tiled_common.cuh"
 #include "tiled_dense.cuh"
@@ -76,107 +72,6 @@
 namespace {
 
 using sps_tiled::kTile;
-
-// ---- the first SIMT body: the timing yardstick ----------------------------
-constexpr int kOneHotCols = 64;  // output columns (= threads) per CTA
-constexpr int kChunk = 256;      // entries staged per step
-constexpr int kPerThread = kChunk / kOneHotCols;
-
-__global__ void __launch_bounds__(kOneHotCols)
-    onehot_simt_kernel(const int* __restrict__ tcols, const int* __restrict__ rows,
-                  const int* __restrict__ cols,
-                  const float* __restrict__ vals, int rt, int cap, int nbc,
-                  int nchunks, const float* __restrict__ X, long long K,
-                  int N, float* __restrict__ Y, long long M) {
-  __shared__ float Ysh[kTile][kOneHotCols];
-  __shared__ int er[kChunk];
-  __shared__ int ec[kChunk];
-  __shared__ float ev[kChunk];
-  __shared__ int warp_count[kOneHotCols / 32];
-
-  const int tid = threadIdx.x;
-  const int lane = tid % 32;
-  const int warp = tid / 32;
-  const int b = blockIdx.x / nchunks;
-  const int n = (blockIdx.x % nchunks) * kOneHotCols + tid;
-  const bool col_ok = n < N;
-
-  for (int i = 0; i < kTile; ++i) Ysh[i][tid] = 0.f;
-
-  for (int t = 0; t < rt; ++t) {
-    const int tc = tcols[(long long)b * rt + t];
-    if (tc >= nbc) continue;  // padding slot: no payload, no X tile
-    const long long base = ((long long)b * rt + t) * cap;
-    const float* xt = X + (long long)tc * kTile * N;
-    const long long xrows = K - (long long)tc * kTile;  // rows of X in tile
-    for (int e0 = 0; e0 < cap; e0 += kChunk) {
-      // Stage this thread's kPerThread neighbouring entries, keep the
-      // nonzero ones, and compact them in entry order.
-      int r[kPerThread], c[kPerThread];
-      float v[kPerThread];
-      int cnt = 0;
-#pragma unroll
-      for (int j = 0; j < kPerThread; ++j) {
-        const int e = e0 + tid * kPerThread + j;
-        v[j] = e < cap ? vals[base + e] : 0.f;
-        r[j] = v[j] != 0.f ? rows[base + e] : 0;
-        c[j] = v[j] != 0.f ? cols[base + e] : 0;
-        cnt += v[j] != 0.f;
-      }
-      int incl = cnt;
-#pragma unroll
-      for (int d = 1; d < 32; d *= 2) {
-        const int up = __shfl_up_sync(0xffffffffu, incl, d);
-        if (lane >= d) incl += up;
-      }
-      __syncthreads();  // the previous chunk has been consumed
-      if (lane == 31) warp_count[warp] = incl;
-      __syncthreads();
-      int pos = incl - cnt;
-      for (int w = 0; w < warp; ++w) pos += warp_count[w];
-      int total = 0;
-#pragma unroll
-      for (int w = 0; w < kOneHotCols / 32; ++w) total += warp_count[w];
-#pragma unroll
-      for (int j = 0; j < kPerThread; ++j) {
-        if (v[j] != 0.f) {
-          er[pos] = r[j];
-          ec[pos] = c[j];
-          ev[pos] = v[j];
-          ++pos;
-        }
-      }
-      __syncthreads();
-      if (!col_ok) continue;
-      int e = 0;
-      for (; e + 4 <= total; e += 4) {
-        float x[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int cc = ec[e + j];
-          x[j] = cc < xrows ? __ldg(xt + (long long)cc * N + n) : 0.f;
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          float* y = &Ysh[er[e + j]][tid];
-          *y = fmaf(ev[e + j], x[j], *y);
-        }
-      }
-      for (; e < total; ++e) {
-        const int cc = ec[e];
-        const float x = cc < xrows ? __ldg(xt + (long long)cc * N + n) : 0.f;
-        float* y = &Ysh[er[e]][tid];
-        *y = fmaf(ev[e], x, *y);
-      }
-    }
-  }
-  if (!col_ok) return;
-  for (int i = 0; i < kTile; ++i) {
-    const long long row = (long long)b * kTile + i;
-    if (row < M) Y[row * N + n] = Ysh[i][tid];
-  }
-}
-
 
 // ---- K7: named X rows staged in shared memory, Y in registers -------------
 namespace k7 {
@@ -882,26 +777,6 @@ int sps_tiled_onehot(const void* tcols, const void* rows, const void* cols,
                    reinterpret_cast<std::uintptr_t>(Y) % 16 == 0;
   return (int)(vec ? k7::launch<true>(L, (int)nchunks, x, K, N, y, M, s)
                    : k7::launch<false>(L, (int)nchunks, x, K, N, y, M, s));
-}
-
-// The first SIMT body of K7 on the same arguments: the timing yardstick
-// and bit-for-bit reference of sps_tiled_onehot; nothing in the port calls
-// it.
-int sps_tiled_onehot_simt(const void* tcols, const void* rows,
-                          const void* cols, const void* vals, int nbr, int rt,
-                          int cap, int nbc, const void* X, long long K, int N,
-                          void* Y, long long M, void* stream) {
-  if (nbr <= 0 || N <= 0 || M <= 0) return (int)cudaSuccess;
-  const long long nchunks = (N + kOneHotCols - 1) / kOneHotCols;
-  const long long grid = (long long)nbr * nchunks;
-  if (grid > 0x7fffffffLL || cap < 0) return (int)cudaErrorInvalidValue;
-  onehot_simt_kernel<<<(unsigned)grid, kOneHotCols, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(tcols), static_cast<const int*>(rows),
-      static_cast<const int*>(cols), static_cast<const float*>(vals), rt, cap,
-      nbc, (int)nchunks, static_cast<const float*>(X), K, N,
-      static_cast<float*>(Y), M);
-  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

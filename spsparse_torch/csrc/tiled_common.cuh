@@ -1,9 +1,7 @@
 // The first, SIMT body of the dense-block tiled SpMM kernels K5
 // (tiled_window.cu) and K6 (tiled.cu), and their column functors. Both
 // kernels run the cp.async ring of tiled_dense.cuh and take this body only
-// for a thin X (N <= 32, BN = 32). Its k-chunk step (fma_chunk, at BN =
-// 128) also serves the first SpGEMM bodies, kept in spgemm.cu as the timing
-// yardsticks of K8 and K9.
+// for a thin X (N <= 32, BN = 32).
 //
 // The operand is a sparse pattern of dense 128 x 128 blocks grouped by
 // block row: blocks (nbr, rt, 128, 128) row-major, slot t of block row b
@@ -68,25 +66,18 @@ struct WindowCols {
   }
 };
 
-// Output column of a thread's j-th accumulator: groups of 4 neighbouring
-// columns 64 apart for BN = 128 (conflict-free float4 reads of the staged
-// X), 2 neighbouring columns for BN = 32.
+// Output column of a thread's j-th accumulator: BN / 16 neighbouring
+// columns a thread.
 template <int BN>
 __device__ __forceinline__ int out_col(int tx, int j) {
-  if constexpr (BN / 16 >= 4) {
-    return (j / 4) * 64 + tx * 4 + (j % 4);
-  } else {
-    return tx * (BN / 16) + j;
-  }
+  return tx * (BN / 16) + j;
 }
 
 // One staged k-chunk of the register-blocked tile product, in k order:
 //   acc[i][j] += sum_k As[k][ty*kTM + i] * Xs[k][out_col<BN>(tx, j)].
-// Xs rows are XS floats apart (BN, or kAStride for a transposed stage).
-// Shared with the first SpGEMM bodies (spgemm.cu, BN = 128).
-template <int BN, int XS>
+template <int BN>
 __device__ __forceinline__ void fma_chunk(const float (*As)[kAStride],
-                                          const float (*Xs)[XS], int tx,
+                                          const float (*Xs)[BN], int tx,
                                           int ty, float (&acc)[kTM][BN / 16]) {
   constexpr int TN = BN / 16;
 #pragma unroll
@@ -96,18 +87,8 @@ __device__ __forceinline__ void fma_chunk(const float (*As)[kAStride],
     const float4 a1 = *reinterpret_cast<const float4*>(&As[k][ty * kTM + 4]);
     a[0] = a0.x; a[1] = a0.y; a[2] = a0.z; a[3] = a0.w;
     a[4] = a1.x; a[5] = a1.y; a[6] = a1.z; a[7] = a1.w;
-    if constexpr (TN >= 4) {
 #pragma unroll
-      for (int g = 0; g < TN / 4; ++g) {
-        const float4 xv = *reinterpret_cast<const float4*>(
-            &Xs[k][out_col<BN>(tx, 4 * g)]);
-        x[4 * g] = xv.x; x[4 * g + 1] = xv.y;
-        x[4 * g + 2] = xv.z; x[4 * g + 3] = xv.w;
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < TN; ++j) x[j] = Xs[k][out_col<BN>(tx, j)];
-    }
+    for (int j = 0; j < TN; ++j) x[j] = Xs[k][out_col<BN>(tx, j)];
 #pragma unroll
     for (int i = 0; i < kTM; ++i)
 #pragma unroll
@@ -157,7 +138,7 @@ __global__ void __launch_bounds__(kThreads)
         Xs[k][n] = (xr < K && xc < N) ? to_f32(X[xr * N + xc]) : 0.f;
       }
       __syncthreads();
-      fma_chunk<BN, BN>(As, Xs, tx, ty, acc);
+      fma_chunk<BN>(As, Xs, tx, ty, acc);
       __syncthreads();
     }
   }

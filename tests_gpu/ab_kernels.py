@@ -1,19 +1,33 @@
 #!/usr/bin/env python3
-"""K7 and K12 of this checkout against scratch variants of their sources and
-against another checkout's, on one CUDA card.
+"""K4, K7 and K12 of this checkout against scratch variants of their sources
+and against another checkout's, on one CUDA card.
 
-    python3 tests_gpu/ab_kernels.py [--other DIR] [--out FILE]
+    python3 tests_gpu/ab_kernels.py [--other DIR] [--kernels k4,k7,k12]
+                                    [--out FILE]
 
 Copies ``spsparse_torch/csrc`` into a temporary directory once for each
-variant, edits the copy's ``tiled.cu`` (K7) or ``block_sort.cu`` (K12),
-compiles each edited source on its own with the repository's nvcc flags
-(all in parallel, ``-Xptxas -v``) and times the copy's kernel against this
-checkout's library in turns (copy, this, this, copy):
+variant, edits the copy's ``dia_cg.cu`` (K4), ``tiled.cu`` (K7) or
+``block_sort.cu`` (K12), compiles each edited source on its own with the
+repository's nvcc flags (all in parallel, ``-Xptxas -v``) and times the
+copy's kernel against this checkout's library in turns (copy, this, this,
+copy):
 
-* ``other`` (with ``--other DIR``): both sources as another checkout of
+* ``other`` (with ``--other DIR``): the three sources as another checkout of
   the repository holds them (the parent commit unpacked with
-  ``git archive``, say). It computes the same function, so its results
-  must equal this checkout's bit for bit.
+  ``git archive``, say). K7 and K12 compute the same function there, so
+  their results must equal this checkout's bit for bit; K4 is held to this
+  checkout's within 1e-4 of max|x| (a two-pass K4, the design before the
+  persistent one, sums in another order; its C signature is told apart by
+  its source).
+* K4 ablations, each with a part of the persistent kernel's work taken out
+  (the results are wrong, save without the prefetch; only the time is
+  kept): ``K4 no diagonal stream`` (every tap's coefficient 1, no load),
+  ``K4 no foreign taps`` (a tap into another CTA's rows reads 0 instead of
+  the published rows), ``K4 no prefetch`` (no L2 prefetch of the next
+  iteration's diagonals), ``K4 no fences`` (the exchange's release store
+  and acquire loads relaxed), ``K4 no wait`` (each CTA loads the slots
+  once and goes on, ready or not: the exchange without its wait). The time
+  each saves is what that part costs.
 * ``ranking only``: the staged K7 without its compaction path, so that
   every unit is grouped by the stable ranking, in row order or not; the
   same function, so bit for bit.
@@ -26,22 +40,24 @@ checkout's library in turns (copy, this, this, copy):
   data moves through shared memory), and ``loads and stores only`` (all
   three out). The time each saves is what that part costs.
 
-Cases: K7 on bench config 3's tiles (``chip_smoke.regrid_entries``,
-2**18 rows, X of 128 columns; as built, each tile in row order, and with
-each tile's slots shuffled) and on the two one_hot-route layouts of
-``chip_smoke`` phase 14 (one diagonal tile a block row; eight tiles a
-block row), each also against the first SIMT body
-(``sps_tiled_onehot_simt``) in turns; K12 at (1024, 64, 128) int32 keys
+Cases: K4 per CG iteration (``chip_smoke.per_iteration_ms``: solves of 72
+and 8 iterations) on ``chip_smoke.spd_dia`` 11-diagonal matrices at n =
+2**20 (float32 and bfloat16 diagonals), 2**22 (the device-memory mode) and
+2**14 (where the exchanges dominate); K7 on bench config 3's tiles
+(``chip_smoke.regrid_entries``, 2**18 rows, X of 128 columns; as built,
+each tile in row order, and with each tile's slots shuffled) and on the
+two one_hot-route layouts of ``chip_smoke`` phase 14 (one diagonal tile a
+block row; eight tiles a block row); K12 at (1024, 64, 128) int32 keys
 with a float32 payload. Prints one JSON line per (variant, case), with
 each copy's ptxas registers and spill bytes and the card's name and power
 limit; ``--out`` also writes the lines to a file.
 
-Last, the spill sites of this checkout's staged K7 where config 3 runs it
-(``onehot_kernel<true, 2>``), from ``cuobjdump -sass`` of the library:
-each local-memory store and load (``STL``, ``LDL``) with the loops around
-it (a loop: the range from a backward branch's target to the branch), so
-that how often a spill runs can be read off: once a launch, once a unit,
-or once an entry.
+With K7 selected, last, the spill sites of this checkout's staged K7 where
+config 3 runs it (``onehot_kernel<true, 2>``), from ``cuobjdump -sass`` of
+the library: each local-memory store and load (``STL``, ``LDL``) with the
+loops around it (a loop: the range from a backward branch's target to the
+branch), so that how often a spill runs can be read off: once a launch,
+once a unit, or once an entry.
 """
 
 from __future__ import annotations
@@ -65,9 +81,22 @@ import chip_smoke as cs  # noqa: E402
 import spsparse_torch as sp  # noqa: E402
 from spsparse_torch import backend  # noqa: E402
 from spsparse_torch.ops import prepare_general, prepare_tiled_rows  # noqa: E402
+from spsparse_torch.ops.dia_stream import launch_args  # noqa: E402
 
 # variant -> (source, [(text, replacement, occurrences)])
 ABLATIONS = {
+    "K4 no diagonal stream": ("dia_cg.cu", [
+        ("load_stream(col + 32 * e, live)", "(live ? 1.f : 0.f)", 1)]),
+    "K4 no prefetch": ("dia_cg.cu", [
+        ("    prefetch_next(a.data, a.ld, row0, nloc, offs.k);\n", "", 1)]),
+    "K4 no foreign taps": ("dia_cg.cu", [
+        ("foreign ? __ldcg(a.pub_p + j) : 0.f;", "0.f;", 1),
+        ("foreign ? __ldcg(a.pub_r + j) : 0.f;", "0.f;", 1)]),
+    "K4 no fences": ("dia_cg.cu", [
+        ("st.release.gpu.global.u64", "st.relaxed.gpu.global.u64", 1),
+        ("ld.acquire.gpu.global.u64", "ld.relaxed.gpu.global.u64", 1)]),
+    "K4 no wait": ("dia_cg.cu", [
+        ("        if (ready) break;\n", "        break;\n", 1)]),
     "ranking only": ("tiled.cu", [
         ("  if (ordered) {\n", "  if (false) {\n", 1)]),
     "ring block rows only": ("tiled.cu", [
@@ -96,8 +125,10 @@ ABLATIONS["loads and stores only"] = ("block_sort.cu", [
     for e in ABLATIONS[name][1]])
 
 
-# The instantiations the timed cases run: K7 on 16-byte vectors (both
-# kernels), K12 with one key and one payload.
+# The instantiations the timed cases run: K4 (every one; the two-pass
+# kernels too), K7 on 16-byte vectors (both kernels), K12 with one key and
+# one payload.
+K4_KERNELS = r"cg_(kernel|pass_a|pass_b|init)"
 K7_VEC = r"onehot_(small_)?kernelILb1"
 K12_TIMED = r"sort_chunk_kernelILi1ELi2E"
 
@@ -156,14 +187,27 @@ def spill_sites(so: Path, pattern: str) -> dict:
     return out
 
 
-def build(tmp: Path, other: Path | None) -> dict:
+SOURCES = {"k4": "dia_cg.cu", "k7": "tiled.cu", "k12": "block_sort.cu"}
+ENTRY_POINTS = {"dia_cg.cu": ("sps_dia_cg", "sps_dia_cg_geometry"),
+                "tiled.cu": ("sps_tiled_onehot",),
+                "block_sort.cu": ("sps_block_sort",)}
+# The two-pass K4's C signature (before the persistent kernel).
+TWO_PASS_K4 = [ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
+               ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+               ctypes.c_float] + [ctypes.c_void_p] * 7 + [
+    ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+    ctypes.c_void_p]
+
+
+def build(tmp: Path, other: Path | None, sources: set) -> dict:
     """``{variant: {source: (CDLL, ptxas text)}}``, compiled in parallel."""
     jobs = {}
     if other is not None:
-        for src in ("tiled.cu", "block_sort.cu"):
+        for src in sorted(sources):
             jobs[("other", src)] = other / "spsparse_torch" / "csrc"
     for name, (src, _) in ABLATIONS.items():
-        jobs[(name, src)] = backend.CSRC_DIR
+        if src in sources:
+            jobs[(name, src)] = backend.CSRC_DIR
     procs = {}
     for i, ((name, src), csrc) in enumerate(jobs.items()):
         d = tmp / f"v{i}"
@@ -177,21 +221,84 @@ def build(tmp: Path, other: Path | None) -> dict:
                 text = text.replace(old, new)
             (d / src).write_text(text)
         so = d / "lib.so"
-        procs[(name, src)] = (so, subprocess.Popen(
+        procs[(name, src)] = (so, d / src, subprocess.Popen(
             [backend.find_nvcc(), *backend.NVCC_FLAGS, "-Xptxas", "-v",
              "-shared", "-o", str(so), str(d / src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs: dict = {}
-    for (name, src), (so, proc) in procs.items():
+    for (name, src), (so, path, proc) in procs.items():
         log = proc.communicate()[0]
         if proc.returncode:
             raise RuntimeError(f"{name} ({src}): nvcc failed\n{log}")
         lib = ctypes.CDLL(str(so))
-        for fn in (("sps_tiled_onehot", "sps_tiled_onehot_simt")
-                   if src == "tiled.cu" else ("sps_block_sort",)):
-            getattr(lib, fn).argtypes = backend._SIGNATURES[fn]
-        libs.setdefault(name, {})[src] = (lib, log)
+        two_pass = src == "dia_cg.cu" and "cg_pass_a" in path.read_text()
+        for fn in ENTRY_POINTS[src]:
+            if two_pass and fn == "sps_dia_cg_geometry":
+                continue
+            getattr(lib, fn).argtypes = (TWO_PASS_K4 if two_pass
+                                         and fn == "sps_dia_cg"
+                                         else backend._SIGNATURES[fn])
+        libs.setdefault(name, {})[src] = (lib, log, two_pass)
     return libs
+
+
+def k4_call(lib, two_pass: bool, prep, b):
+    """A solve of ``iters`` iterations (a function of ``iters``) by the K4
+    of ``lib``: the persistent kernel's arguments from its own geometry
+    function, or the two-pass kernel's buffers."""
+    code, offs = launch_args(prep)
+    n = prep.shape[0]
+    dev = b.device
+    offs_p = ctypes.cast(offs, ctypes.c_void_p)
+
+    def run(iters):
+        x = torch.empty(n, device=dev)
+        scal = torch.empty(3, device=dev)    # two-pass: rs, alpha, beta
+        stream = torch.cuda.current_stream().cuda_stream
+        if two_pass:
+            r, p_a, p_b, ap = torch.empty((4, n), device=dev).unbind(0)
+            nparts = -(-n // 256)
+            partial = torch.empty(nparts, device=dev)
+            counter = torch.zeros(1, dtype=torch.int32, device=dev)
+            err = lib.sps_dia_cg(
+                code, prep.data.data_ptr(), prep.data.stride(0), n,
+                len(prep.offsets), offs_p, cs.SHIFT, b.data_ptr(),
+                x.data_ptr(), r.data_ptr(), p_a.data_ptr(), p_b.data_ptr(),
+                ap.data_ptr(), partial.data_ptr(), nparts,
+                counter.data_ptr(), scal.data_ptr(), iters, stream)
+        else:
+            geo = (ctypes.c_longlong * 6)()
+            backend.check(lib.sps_dia_cg_geometry(
+                code, n, ctypes.cast(geo, ctypes.c_void_p)),
+                "sps_dia_cg_geometry")
+            scratch = torch.empty(geo[5], device=dev)
+            err = lib.sps_dia_cg(
+                code, prep.data.data_ptr(), prep.data.stride(0), n,
+                len(prep.offsets), offs_p, cs.SHIFT, b.data_ptr(),
+                x.data_ptr(), scratch.data_ptr(), scratch.numel(),
+                scal.data_ptr(), iters, stream)
+        backend.check(err, "sps_dia_cg")
+        return x, scal[0]
+    return run
+
+
+def k4_cases():
+    """``{case: (prep, b)}``: 11-diagonal SPD matrices on the card."""
+    band = tuple(range(-cs.BAND, cs.BAND + 1))
+    cases = {}
+    for what, n, dtype in (("K4 f32, n = 2^20", cs.N, torch.float32),
+                           ("K4 bf16, n = 2^20", cs.N, torch.bfloat16),
+                           ("K4 f32, n = 2^22 (device-memory mode)",
+                            4 * cs.N, torch.float32),
+                           ("K4 f32, n = 2^14", cs.CG_SMALL_N,
+                            torch.float32)):
+        prep = cs.spd_dia(torch, "cuda", n, band, 5)
+        prep = type(prep)(data=prep.data.to(dtype), offsets=prep.offsets,
+                          shape=prep.shape)
+        b = torch.from_numpy(np.random.default_rng(6).uniform(
+            -1, 1, n).astype(np.float32)).cuda()
+        cases[what] = (prep, b)
+    return cases
 
 
 def k7_call(lib, fn, prep, X):
@@ -245,20 +352,19 @@ def k7_cases():
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", type=Path, default=None)
+    ap.add_argument("--kernels", default="k4,k7,k12")
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("ab_kernels: needs a CUDA card", file=sys.stderr)
         return 1
+    chosen = {k.strip() for k in args.kernels.split(",") if k.strip()}
+    if not chosen <= set(SOURCES):
+        print(f"ab_kernels: --kernels takes {sorted(SOURCES)}",
+              file=sys.stderr)
+        return 1
     smi = cs.nvidia_smi_line()
     this = backend.load_kernels()
-    rng = np.random.default_rng(12)
-    sort_arrays = (
-        torch.from_numpy(rng.integers(0, 1 << 30, (cs.SORT_NBLK, 64, 128))
-                         .astype(np.int32)).cuda(),
-        torch.from_numpy(rng.uniform(-1, 1, (cs.SORT_NBLK, 64, 128))
-                         .astype(np.float32)).cuda())
-    k7 = k7_cases()
     kw = dict(reps=7, inner=3, warmup=2)
     lines = []
 
@@ -268,20 +374,41 @@ def main() -> int:
         print(line, flush=True)
         lines.append(line)
 
+    k4 = k4_cases() if "k4" in chosen else {}
+    k7 = k7_cases() if "k7" in chosen else {}
+    if "k12" in chosen:
+        rng = np.random.default_rng(12)
+        sort_arrays = (
+            torch.from_numpy(rng.integers(0, 1 << 30, (cs.SORT_NBLK, 64, 128))
+                             .astype(np.int32)).cuda(),
+            torch.from_numpy(rng.uniform(-1, 1, (cs.SORT_NBLK, 64, 128))
+                             .astype(np.float32)).cuda())
     with tempfile.TemporaryDirectory() as tmp:
-        libs = build(Path(tmp), args.other)
-        # K7 of this checkout against its first SIMT body.
-        for what, (prep, X) in k7.items():
-            ms, simt_ms = cs.compare_times(
-                torch, k7_call(this, "sps_tiled_onehot", prep, X),
-                k7_call(this, "sps_tiled_onehot_simt", prep, X), **kw)
-            emit({"variant": "this vs first SIMT body", "case": what,
-                  "ms": ms, "simt_ms": simt_ms,
-                  "slots_a_block_row": prep.tiles_per_row * prep.tile_cap,
-                  "tile_cap": prep.tile_cap})
+        libs = build(Path(tmp), args.other,
+                     {SOURCES[k] for k in chosen})
         for name, by_src in libs.items():
-            for src, (lib, log) in by_src.items():
-                if src == "tiled.cu":
+            for src, (lib, log, two_pass) in by_src.items():
+                if src == "dia_cg.cu":
+                    for what, (prep, b) in k4.items():
+                        mine = k4_call(this, False, prep, b)
+                        theirs = k4_call(lib, two_pass, prep, b)
+                        row = {"variant": name, "case": what,
+                               "two_pass": two_pass}
+                        if name == "other":
+                            x, _ = mine(cs.CG_ITERS)
+                            y, _ = theirs(cs.CG_ITERS)
+                            err = float((x - y).abs().max())
+                            if not err <= 1e-4 * float(x.abs().max()):
+                                raise RuntimeError(f"other: {what} differs "
+                                                   f"({err})")
+                            row["max_abs_err"] = err
+                        ms = cs.per_iteration_ms(
+                            torch, {"this": mine, "variant": theirs})
+                        row.update(this_ms_per_iteration=ms["this"],
+                                   variant_ms_per_iteration=ms["variant"],
+                                   ptxas=ptxas_summary(log, K4_KERNELS))
+                        emit(row)
+                elif src == "tiled.cu":
                     for what, (prep, X) in k7.items():
                         mine = k7_call(this, "sps_tiled_onehot", prep, X)
                         theirs = k7_call(lib, "sps_tiled_onehot", prep, X)
@@ -310,9 +437,10 @@ def main() -> int:
                         torch, mine, theirs, **kw)
                     row["ptxas"] = ptxas_summary(log, K12_TIMED)
                     emit(row)
-    so = next(backend.KERNEL_DIR.glob("*/" + backend._LIB_NAME))
-    emit({"spill sites": "this checkout's staged K7 at config 3",
-          "sass": spill_sites(so, r"onehot_kernelILb1ELi2E")})
+    if "k7" in chosen:
+        so = next(backend.KERNEL_DIR.glob("*/" + backend._LIB_NAME))
+        emit({"spill sites": "this checkout's staged K7 at config 3",
+              "sass": spill_sites(so, r"onehot_kernelILb1ELi2E")})
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text("\n".join(lines) + "\n")

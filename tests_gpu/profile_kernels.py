@@ -11,8 +11,9 @@ phase 14, and bench config 4's matrix (2**17 rows) with its band plan and
 pair plans (A A^T, and C C for C = A A^T), and bench config 2c (2**20 rows,
 10 uniform-random columns a row) with its shuffle layout and CSR products
 and the (1024, 64, 128) block sort, as ``chip_smoke.py`` does; runs each
-wrapper (and the library calls and earlier kernel designs, the first
-bodies of K7, K8, K9 and K12 and K11's scatter design, that
+wrapper (K4 on S in float32 and bfloat16, solves of 50 and of 8
+iterations, whose difference over 42 is the device time of an iteration;
+and the library calls and K11's earlier scatter design that
 ``chip_smoke.py`` uses as yardsticks) 10 times under
 ``torch.profiler``, and prints one JSON line per workload: the CUDA kernels
 it ran, their count and device time, and the device time per call. Needs
@@ -74,7 +75,9 @@ def main() -> int:
     B = sp.SparseDIA(data=torch.from_numpy(band.T.copy()).to(dev),
                      offsets=tuple(range(-cs.BAND, cs.BAND + 1)),
                      shape=(n, n))
-    prep_s = cs.phase_spd(torch, sp, dev, n)["prep"]
+    spd = cs.phase_spd(torch, sp, dev, n)
+    prep_s = spd["prep"]
+    prep_s16 = prepare_dia(spd["S"], dtype=torch.bfloat16)
     pf, pb = prepare_dia(B), prepare_dia(B, dtype=torch.bfloat16)
     rng = np.random.default_rng(0)
     x = torch.from_numpy(rng.uniform(-1, 1, n).astype(np.float32)).to(dev)
@@ -140,6 +143,12 @@ def main() -> int:
         "K3 bf16, 8 RHS": lambda: spmm_dia_mrhs(pb, X),
         "K4 f32, 50 iterations": lambda: cg_solve_dia(
             prep_s, x, iters=cs.CG_ITERS, shift=cs.SHIFT),
+        "K4 bf16, 50 iterations": lambda: cg_solve_dia(
+            prep_s16, x, iters=cs.CG_ITERS, shift=cs.SHIFT),
+        "K4 f32, 8 iterations": lambda: cg_solve_dia(
+            prep_s, x, iters=8, shift=cs.SHIFT),
+        "K4 bf16, 8 iterations": lambda: cg_solve_dia(
+            prep_s16, x, iters=8, shift=cs.SHIFT),
         "library A_csr @ x": lambda: A_csr @ x,
         "library A_csr @ X.T": lambda: A_csr @ X.T,
         "K5 f32, config 3 (group 16)": lambda: spmm_tiled_window(w32, X3),
@@ -148,24 +157,13 @@ def main() -> int:
         "K6 bf16, config 3": lambda: spmm_tiled_dense(d16, X3),
         "K7 f32, config 3": lambda: spmm_tiled_onehot(rows, X3),
         "library A3_csr @ X, config 3": lambda: A3_csr @ X3,
-        "K7 f32, config 3, first SIMT body": lambda: cs.k7_simt(rows, X3),
         "K7 f32, one_hot route": lambda: spmm_tiled_onehot(pg.prep, Xo),
-        "K7 f32, one_hot route, first SIMT body": lambda: cs.k7_simt(
-            pg.prep, Xo),
         "library Ao_csr @ X, one_hot route": lambda: Ao_csr @ Xo,
         "K8 f32, config 4 A A^T band": lambda: spgemm_window(*band["f32"]),
         "K8 bf16, config 4 A A^T band": lambda: spgemm_window(*band["bf16"]),
-        "K8 f32, config 4 A A^T band, first SIMT body": lambda: cs.k8_simt(
-            *band["f32"]),
-        "K8 bf16, config 4 A A^T band, first SIMT body": lambda: cs.k8_simt(
-            *band["bf16"]),
         "K9 f32, config 4 A A^T pairs": lambda: spgemm_tiled_pairs(
             ta["f32"], ta["f32"], plan_t),
         "K9 bf16, config 4 A A^T pairs": lambda: spgemm_tiled_pairs(
-            ta["bf16"], ta["bf16"], plan_t),
-        "K9 f32, config 4 A A^T pairs, first SIMT body": lambda: cs.k9_simt(
-            ta["f32"], ta["f32"], plan_t),
-        "K9 bf16, config 4 A A^T pairs, first SIMT body": lambda: cs.k9_simt(
             ta["bf16"], ta["bf16"], plan_t),
         "K13 f32, config 4 A A^T pairs": lambda: spgemm_tiled_stream(
             ta["f32"], ta["f32"], plan_t),
@@ -174,10 +172,6 @@ def main() -> int:
         "K9 f32, config 4 C C pairs": lambda: spgemm_tiled_pairs(
             tc["f32"], tc["f32"], plan_n),
         "K9 bf16, config 4 C C pairs": lambda: spgemm_tiled_pairs(
-            tc["bf16"], tc["bf16"], plan_n),
-        "K9 f32, config 4 C C pairs, first SIMT body": lambda: cs.k9_simt(
-            tc["f32"], tc["f32"], plan_n),
-        "K9 bf16, config 4 C C pairs, first SIMT body": lambda: cs.k9_simt(
             tc["bf16"], tc["bf16"], plan_n),
         "K13 f32, config 4 C C pairs": lambda: spgemm_tiled_stream(
             tc["f32"], tc["f32"], plan_n),
@@ -198,8 +192,6 @@ def main() -> int:
         "library A2_csr @ x, config 2c": lambda: A2_csr @ x2,
         "K12 (1024, 64, 128) key + payload": lambda: sort_blocks((keys,
                                                                   pay)),
-        "K12 (1024, 64, 128) key + payload, first body":
-            lambda: cs.k12_simt((keys, pay), 1),
         "library torch.sort + gather, (1024, 8192)": lambda: fp.gather(
             1, torch.sort(fk, dim=-1).indices),
     }

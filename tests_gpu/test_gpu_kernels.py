@@ -9,13 +9,14 @@ plain versions against JAX). Tolerances: K1 and K3 rtol/atol 1e-5 (the
 kernels fuse multiply-adds, the plain versions round each product); K2
 rtol 1e-4 / atol 1e-6 over up to 7 iterations; K4 1e-4 of max|x| after 40
 CG iterations against its plain version and the composed solve over K1
-(the rounding differences compound through the recurrences). K5-K7
+(the rounding differences compound through the recurrences), rtol 1e-4 on
+rs after 3, and bit for bit from one solve to the next. K5-K7
 (tiled general SpMM) and K8, K9, K13 (tiled SpGEMM): float32 rtol 1e-5
 with atol 1e-5 of max|ref|; bfloat16 blocks atol 1e-4 of max|ref| (exact
 products, float32 sums in another order); gradients rtol/atol 1e-4;
-float32 K8, K9 and K13 equal bit for bit to each other and to the first
-SIMT bodies of K8 and K9 (the same sum order; a skipped chunk adds only
-exact zeros); NaN and Inf exactly where the plain version has them. K10
+float32 K9 and K13 equal bit for bit to each other (the same sum order; a
+skipped chunk adds only exact zeros), every kernel to a second call; NaN
+and Inf exactly where the plain version has them. K10
 rtol/atol 1e-5 (another sum order); K11's slot grid bit for bit (one
 multiply a slot, the same slots as the plain sort pipeline), its SpMV
 rtol 1e-5 against the plain version and float64; K12 keys exact, payloads
@@ -186,32 +187,83 @@ def test_k3_vector_rhs_and_grads():
         torch.testing.assert_close(g_dev, g_cpu, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("n", [1, 777, 65_537])
-def test_k4_matches_plain_and_composed(dtype, n):
-    dev = _cuda()
-    rng = np.random.default_rng(n)
-    offs = (-2, -1, 0, 1, 2)
-    data, offs = banded(rng, n, offs, scale=0.5)
-    # Symmetrise: A[i, i+o] = A[i+o, i], so A + 3 I is SPD by Gershgorin.
+def _spd(rng, n, offs, scale=0.5):
+    """Symmetric DIA data: A[i, i+o] = A[i+o, i]; with scale 0.5 and the
+    shift below, A + shift I is SPD by Gershgorin."""
+    data, offs = banded(rng, n, offs, scale=scale)
     for k, o in enumerate(offs):
-        if o > 0:
+        if 0 < o < n:
             kk = offs.index(-o)
             data[kk, o:] = data[k, :n - o]
+    return data, offs
+
+
+# name: (n, offsets, shift, the mode the geometry must report or None)
+K4_CASES = {
+    "one_row": (1, (-2, -1, 0, 1, 2), 3.0, True),
+    "odd_n": (777, (-2, -1, 0, 1, 2), 3.0, True),
+    "two_chunks_a_cta": (65_537, (-2, -1, 0, 1, 2), 3.0, True),
+    "below_the_grid": (100, (-7, -3, 0, 3, 7), 6.0, True),
+    "far_offsets": (200_000, (-100_000, -1, 0, 1, 100_000), 3.0, None),
+    "past_a_cta": (300_001, (-5000, -2000, 0, 2000, 5000), 6.0, None),
+    "single_diagonal": (4099, (0,), 1.0, True),
+    "device_memory_mode": (1 << 22, (-2, -1, 0, 1, 2), 3.0, False),
+}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", list(K4_CASES))
+def test_k4_matches_plain_and_composed(dtype, case):
+    """K4 against its plain version and the composed solve over K1 (1e-4 of
+    max|x|), bit for bit from one solve to the next, with the geometry the
+    kernel reports equal to the mirror's."""
+    from spsparse_torch.ops.dia_cg import cg_geometry, cg_kernel_geometry
+
+    dev = _cuda()
+    n, offs, shift, resident = K4_CASES[case]
+    rng = np.random.default_rng(n)
+    data, offs = _spd(rng, n, offs)
     prep = prepare_dia(dia_from_numpy(data, offs, (n, n), device=dev),
                        dtype=getattr(torch, dtype))
     b = torch.from_numpy(rng.uniform(-1, 1, n).astype(np.float32)).to(dev)
     before = cg_solve_dia.launches
-    x, rs = cg_solve_dia(prep, b, iters=40, shift=3.0)
+    x, rs = cg_solve_dia(prep, b, iters=40, shift=shift)
     torch.cuda.synchronize()
     assert cg_solve_dia.launches == before + 1
     assert x.shape == (n,) and rs.shape == () and rs.device.type == "cuda"
-    x_ref, rs_ref = cg_solve_dia_reference(prep, b, iters=40, shift=3.0)
-    x_cmp, _ = cg_solve(lambda v: best_spmv(prep, v) + 3.0 * v, b, iters=40)
+    x2, rs2 = cg_solve_dia(prep, b, iters=40, shift=shift)
+    assert torch.equal(x, x2) and torch.equal(rs, rs2)
+    x_ref, rs_ref = cg_solve_dia_reference(prep, b, iters=40, shift=shift)
+    x_cmp, _ = cg_solve(lambda v: best_spmv(prep, v) + shift * v, b,
+                        iters=40)
     scale = float(x_ref.abs().max())
     for other in (x_ref, x_cmp):
         assert float((x - other).abs().max()) <= 1e-4 * scale
     assert float(rs) <= 1e-8 * float(b.dot(b)) + 1e-10
+    props = torch.cuda.get_device_properties(0)
+    geo = cg_kernel_geometry(n, getattr(torch, dtype))
+    assert geo == cg_geometry(
+        n, sms=props.multi_processor_count,
+        smem_per_sm=props.shared_memory_per_multiprocessor,
+        smem_per_block=props.shared_memory_per_block_optin)
+    assert resident is None or geo.resident == resident
+    if case == "below_the_grid":
+        assert geo.grid > n
+
+
+def test_k4_few_iterations_match_plain_rs():
+    """Before convergence, x and the final rs against the plain version."""
+    dev = _cuda()
+    rng = np.random.default_rng(41)
+    n = 50_003
+    data, offs = _spd(rng, n, (-9, -4, -1, 0, 1, 4, 9), scale=0.3)
+    prep = prepare_dia(dia_from_numpy(data, offs, (n, n), device=dev))
+    b = torch.from_numpy(rng.uniform(-1, 1, n).astype(np.float32)).to(dev)
+    x, rs = cg_solve_dia(prep, b, iters=3, shift=2.0)
+    x_ref, rs_ref = cg_solve_dia_reference(prep, b, iters=3, shift=2.0)
+    torch.cuda.synchronize()
+    assert float((x - x_ref).abs().max()) <= 1e-4 * float(x_ref.abs().max())
+    torch.testing.assert_close(rs, rs_ref, rtol=1e-4, atol=0)
 
 
 def test_k4_zero_rhs_and_zero_iters():
@@ -467,7 +519,6 @@ def test_k7_matches_plain(m, k, N, empty):
     ref = spmm_tiled_onehot_reference(prep, X)
     torch.testing.assert_close(Y, ref, **_scaled(_tol("float32"), ref))
     assert torch.equal(bits(Y), bits(spmm_tiled_onehot(prep, X)))
-    assert torch.equal(bits(Y), bits(chip_smoke.k7_simt(prep, X)))
     if k > 50:
         assert prep.tile_cap > 4096   # more than one staging unit a tile
 
@@ -535,12 +586,13 @@ K7_EDGES = {"small": (64, "random", False, 3),
 @pytest.mark.parametrize("N", [1, 3, 100, 128, 200])
 @pytest.mark.parametrize("case", list(K7_EDGES))
 def test_k7_layout_edges_bitwise(N, case):
-    """K7 equal to its first SIMT body bit for bit on hand-built layouts:
-    padding slots and an empty block row, K not a multiple of 128,
+    """K7 against its plain version and a second call, bit for bit, on
+    hand-built layouts: padding slots and an empty block row, K not a multiple of 128,
     duplicate entries and unsorted rows, block rows of several 256-slot
     pieces, tiles of more than one staging unit (4096 slots), and Inf/NaN
     in X rows that no entry names (they must not reach Y) and in rows that
-    an entry names."""
+    an entry names (only the rows those reach are non-finite; the others
+    against the plain version)."""
     from spsparse_torch.ops import (spmm_tiled_onehot,
                                     spmm_tiled_onehot_reference)
 
@@ -566,7 +618,6 @@ def test_k7_layout_edges_bitwise(N, case):
     Y = spmm_tiled_onehot(prep, X)
     torch.cuda.synchronize()
     assert spmm_tiled_onehot.launches == before + 1
-    assert torch.equal(bits(Y), bits(chip_smoke.k7_simt(prep, X)))
     assert torch.equal(bits(Y), bits(spmm_tiled_onehot(prep, X)))
     if not nonfinite:
         ref = spmm_tiled_onehot_reference(prep, X)
@@ -584,6 +635,14 @@ def test_k7_layout_edges_bitwise(N, case):
         hit[grow[live & bad[np.minimum(gcol, K - 1)]]] = True
         finite = torch.isfinite(Y).all(dim=1).cpu().numpy()
         np.testing.assert_array_equal(finite, ~hit[:M])
+        # The other rows name finite X rows only: against the plain version
+        # on X with its non-finite values set to 0.
+        ref = spmm_tiled_onehot_reference(
+            prep, torch.nan_to_num(X, nan=0.0, posinf=0.0, neginf=0.0))
+        keep = torch.from_numpy(finite).to(dev)
+        if bool(keep.any()):
+            torch.testing.assert_close(Y[keep], ref[keep],
+                                       **_scaled(_tol("float32"), ref[keep]))
 
 
 def test_tiled_cuda_tensors_never_reach_plain_versions(monkeypatch):
@@ -705,9 +764,6 @@ def test_k8_matches_plain_dead_slots_zero(dtype, case):
     assert not bool(band.reshape(-1, 128 * 128)[dead].any())
     assert torch.equal(band, spgemm_window(
         plan, pa.blocks, None if plan.shared else pb.blocks))
-    if dtype == "float32":      # the first body's sum order
-        assert torch.equal(band, chip_smoke.k8_simt(plan, pa.blocks,
-                                                    pb.blocks))
 
 
 def pair_operands(dev, kind, transpose_b, dt):
@@ -764,9 +820,8 @@ def test_k9_k13_match_plain(dtype, transpose_b, kind):
                                    **_scaled(_tol(dtype), ref))
         outs.append(out.blocks)
     torch.testing.assert_close(outs[1], outs[0], **_scaled(_tol(dtype), ref))
-    if dtype == "float32":      # K13 and the first K9 sum in K9's order
+    if dtype == "float32":      # K13 sums in K9's order
         assert torch.equal(outs[1], outs[0])
-        assert torch.equal(chip_smoke.k9_simt(ta, tb, plan), outs[0])
     assert torch.equal(spgemm_tiled_stream(ta, tb, plan).blocks, outs[1])
     assert torch.equal(spgemm_tiled_pairs(ta, tb, plan).blocks, outs[0])
 
@@ -832,8 +887,8 @@ def test_k13_ring_tile_counts(dtype, transpose_b, n):
     tiles than resident CTAs (4), about as many (264: two CTAs on each of
     132 SMs) and more (2003), with tiles of no pairs first, in the middle
     and last (stored as exact zeros over a NaN-filled allocation); float32
-    K9 and K13 equal to each other and to the first K9 bit for bit, and two
-    calls bit-identical."""
+    K9 and K13 equal to each other bit for bit, and two calls
+    bit-identical."""
     from spsparse_torch.ops import (plan_tiled_spgemm, spgemm_tiled_pairs,
                                     spgemm_tiled_reference,
                                     spgemm_tiled_stream)
@@ -863,7 +918,6 @@ def test_k13_ring_tile_counts(dtype, transpose_b, n):
     assert not bool(k9[torch.from_numpy(empty).to(dev)].any())
     if dtype == "float32":
         assert torch.equal(k9, got)
-        assert torch.equal(chip_smoke.k9_simt(A, B, plan), got)
 
 
 def nonfinite_tiles(dt):
@@ -1179,9 +1233,10 @@ def test_k12_matches_plain(shape, num_keys, n_payload):
         assert torch.equal(g, r)
     for g, r in zip(canon_blocks(got), canon_blocks(ref)):
         assert torch.equal(g, r)
-    # The same network and tie rule as the first body: payloads too.
+    # The same network and tie rule from one call to the next: payloads
+    # too.
     assert chip_smoke.bitwise_equal(torch, got,
-                                    chip_smoke.k12_simt(arrays, num_keys))
+                                    sort_blocks(arrays, num_keys=num_keys))
 
 
 @pytest.mark.parametrize("n_arrays,num_keys", [
@@ -1256,7 +1311,7 @@ def test_k12_float_keys_and_many_arrays(num_keys, n_arrays):
     for g, r in zip(canon_blocks(got), canon_blocks(ref)):
         assert torch.equal(g, r)
     assert chip_smoke.bitwise_equal(torch, got,
-                                    chip_smoke.k12_simt(arrays, num_keys))
+                                    sort_blocks(arrays, num_keys=num_keys))
 
 
 def test_unstructured_cuda_tensors_never_reach_plain_versions(monkeypatch):
