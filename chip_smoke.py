@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the spsparse_torch main path, solve path, SpMM path, SpGEMM path and
-unstructured SpMV path once on one CUDA card and check them.
+"""Drive the spsparse_torch main path, solve path, SpMM path, SpGEMM path,
+unstructured SpMV path and core path once on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -119,6 +119,38 @@ columns a row, values uniform(-1, 1), x uniform(-1, 1), all from
     stable and otherwise as a multiset within each run of equal keys; on
     all six shapes, keys and payloads equal to a second call bit for bit;
     the chunk geometry the kernel reports equal to the host replay's.
+The core path (``core_path``), the rest of ``core/`` at the main path's
+width (the band ``B`` of phase 2: 2**20 rows, offsets -5..5, float32,
+``default_rng(0)``, 11,534,306 entries, consolidated):
+
+C1. Joins: the row-major keys of ``B`` and of the consolidated ``B^T``
+    through ``join2`` (``n_match`` = nnz: the pattern is symmetric; the
+    matched positions gather ``B[i, j]`` and ``B[j, i]``, 10**5 of them
+    held against scipy), ``join3`` with the main diagonal of
+    ``coo_diags`` (``n_match`` = n), and ``intersect_mask`` of 10**6
+    random keys near the band against ``np.isin``.
+C2. Algebra: ``coo_add(B, B^T, 0.5, 0.5)`` against phase 7's ``S``
+    (indices exact, values rtol 1e-6); ``coo_add(tril(S), triu(S, 1))``
+    equal to ``S``; ``row_sums(B)`` and ``col_sums(B)`` against K1's
+    ``B 1`` and ``B^T 1`` (rtol 1e-5, atol 1e-5 of the max);
+    ``scale_rows``/``scale_cols`` with phase 3's scale vectors, the
+    stacking of ``B``'s two halves (``coo_slice``) and ``coo_kron`` of two
+    512-row bands against scipy.
+C3. Accumulators: ``scatter_to_dense`` of a 4096 x 4096 ``coo_slice`` of
+    phase 2's doubled stream under ADD, and of the slice with each entry
+    twice more at -3x under LEAVE_ALONE (first wins), REPLACE (last wins)
+    and ADD, against numpy; ``scalar_sum(B)`` against a float64 host sum
+    (rtol 1e-5); ``permute_output`` and ``project_output`` on a rank-3
+    array of 10**6 entries.
+C4. Reorder to K1: ``B`` scrambled by ``coo_permute`` with a permutation
+    from ``default_rng(1)`` (bandwidth near n), ``rcm_permutation`` on the
+    host (its time logged), ``coo_permute`` back (bandwidth b with
+    ``2b + 1 <= MAX_DIAGS``), ``to_dia``, ``prepare_dia`` in float32 and
+    bfloat16 and ``best_spmv`` (K1), against the plain K1 and the scipy
+    float64 product of the scrambled matrix with x and y permuted.
+C5. Interop: config 2c's matrix through ``to_scipy`` and ``from_scipy``;
+    indices and values exact.
+
 25. Time every kernel against its plain version (CUDA events, in turns:
     plain, kernel, kernel, plain), and one PyTorch library call computing
     the same function where there is one (``torch.sparse_csr_tensor``
@@ -188,6 +220,10 @@ SPGEMM_X = 128       # columns of X in the SpGEMM hand-off to K6
 CFG2C_K = 10         # entries a row of bench config 2c (n = N)
 HEAVY_N = 1 << 16    # rows of the heavy-row shuffle matrix
 SORT_NBLK = 1024     # (1024, 64, 128) blocks: the TPU sort probe's size
+CORE_KRON_N = 512    # rows of each band in C2's coo_kron
+CORE_SLICE_M = 4096  # C3's square slice of phase 2's stream
+CORE_R3_NNZ = 10 ** 6  # entries of C3's rank-3 array
+CORE_QUERIES = 10 ** 6  # random keys C1 probes with intersect_mask
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12     # H100 SXM bfloat16 on the tensor cores
@@ -471,16 +507,21 @@ def band_of(n):
     return band
 
 
-def phase_spd(torch, sp, dev, n):
-    """Phase 7: S = (B + B^T)/2 through the builder, consolidate, to_dia."""
-    from spsparse_torch.ops import prepare_dia
-
+def spd_coo(sp, dev, n):
+    """Phase 7's ``S = (B + B^T)/2`` through the builder, consolidated."""
     r, c, v = banded_entries(n)
     half = (np.float32(0.5) * v).astype(np.float32)
     b = sp.CooBuilder((n, n), dtype=np.float32)
     b.add_many(np.stack([r, c], axis=1), half)
     b.add_many(np.stack([c, r], axis=1), half)
-    S = sp.to_dia(sp.consolidate(b.build(device=dev)))
+    return sp.consolidate(b.build(device=dev))
+
+
+def phase_spd(torch, sp, dev, n):
+    """Phase 7: S = (B + B^T)/2 through the builder, consolidate, to_dia."""
+    from spsparse_torch.ops import prepare_dia
+
+    S = sp.to_dia(spd_coo(sp, dev, n))
     sync(torch, dev)
     offs = tuple(range(-BAND, BAND + 1))
     require(S.offsets == offs, f"S offsets {S.offsets}")
@@ -1647,6 +1688,297 @@ def unstructured_path(torch, sp, dev, n=N, heavy_n=HEAVY_N,
     return {"c2": c2, "shuffle": sh, "segsum": seg, "sort": srt}
 
 
+def band_coo(sp, dev, n):
+    """The benchmark's banded matrix ``B`` through ``CooBuilder``,
+    consolidated (row-major, each entry once)."""
+    r, c, v = banded_entries(n)
+    return sp.consolidate(build_coo(sp, dev, (n, n), r, c, v))
+
+
+def same_as_scipy(torch, sp, got, ref, what: str, rtol: float = 0.0):
+    """``got`` (consolidated on the card) against a scipy matrix: the same
+    rows, columns and count exactly; values exactly, or within ``rtol``."""
+    c = sp.consolidate(got)
+    ref = ref.tocsr()
+    ref.sum_duplicates()
+    require(c.shape == ref.shape and c.nnz == ref.nnz,
+            f"{what}: shape {c.shape} nnz {c.nnz} vs scipy {ref.shape} "
+            f"{ref.nnz}")
+    idx = c.indices[: c.nnz].cpu().numpy()
+    require(np.array_equal(np.bincount(idx[:, 0], minlength=c.shape[0]),
+                           np.diff(ref.indptr))
+            and np.array_equal(idx[:, 1], ref.indices),
+            f"{what}: structure differs from scipy")
+    vals = c.vals[: c.nnz].cpu().numpy().astype(np.float64)
+    if rtol:
+        ok, err = close(vals, ref.data, rtol, 0.0)
+        require(ok, f"{what}: values off scipy (max abs err {err})")
+    else:
+        require(np.array_equal(vals, ref.data), f"{what}: values differ")
+
+
+def phase_joins(torch, sp, dev, B, n_query: int):
+    """Phase C1: join2 / join3 / intersect_mask on the band's keys."""
+    n, nnz = B.shape[0], B.nnz
+    Bt = sp.consolidate(B.T)
+    sent = n * n
+
+    def keys(a, m):
+        return a.indices[:m, 0].long() * n + a.indices[:m, 1].long()
+
+    kB, kT = keys(B, nnz), keys(Bt, nnz)
+    j2 = sp.join2(kB, nnz, kT, nnz, sentinel=sent)
+    require(j2.n_match == nnz, f"join2 n_match {j2.n_match} != nnz {nnz}")
+    p1, p2 = j2.pos[0].long(), j2.pos[1].long()
+    require(bool(torch.equal(kB[p1], kT[p2])), "join2 matched keys differ")
+    r, c, v = banded_entries(n)
+    host = csr_host(r, c, v, (n, n))
+    pick = torch.from_numpy(np.random.default_rng(3).choice(
+        nnz, min(100_000, nnz), replace=False)).to(dev)
+    ij = B.indices[p1[pick]].long().cpu().numpy()
+    want_ij = np.asarray(host[ij[:, 0], ij[:, 1]]).ravel()
+    want_ji = np.asarray(host[ij[:, 1], ij[:, 0]]).ravel()
+    require(np.array_equal(B.vals[p1[pick]].cpu().numpy(), want_ij)
+            and np.array_equal(Bt.vals[p2[pick]].cpu().numpy(), want_ji),
+            "join2 positions do not gather B[i, j] and B[j, i]")
+    D = sp.coo_diags([np.ones(n)], [0], (n, n), device=dev)
+    j3 = sp.join3(kB, nnz, kT, nnz, keys(D, n), n, sentinel=sent)
+    require(j3.n_match == n, f"join3 with the diagonal: n_match {j3.n_match}")
+    rng = np.random.default_rng(4)
+    qr = rng.integers(0, n, n_query)
+    qc = qr + rng.integers(-2 * BAND, 2 * BAND + 1, n_query)
+    ok = (qc >= 0) & (qc < n)
+    q = np.unique(qr[ok] * n + qc[ok])
+    match, pos = sp.core.intersect_mask(torch.from_numpy(q).to(dev), q.size,
+                                        kB, nnz, sent)
+    kh = kB.cpu().numpy()
+    want = np.isin(q, kh)
+    m_host = match.cpu().numpy()
+    require(np.array_equal(m_host, want), "intersect_mask differs from isin")
+    require(np.array_equal(kh[pos.cpu().numpy()[m_host]], q[m_host]),
+            "intersect_mask positions do not hold the keys")
+    return {"Bt": Bt, "host": host, "n_match": j2.n_match,
+            "n_query": int(q.size), "n_found": int(want.sum())}
+
+
+def phase_algebra(torch, sp, dev, B, Bt, host, kron_n: int):
+    """Phase C2: coo_add, tril/triu, row/col sums against K1, scaling,
+    stacking and kron, each against its reference."""
+    import scipy.sparse as ssp
+    from spsparse_torch.ops import best_spmv, prepare_dia
+
+    n, nnz = B.shape[0], B.nnz
+    S = sp.coo_add(B, B.T, alpha=0.5, beta=0.5)
+    S7 = spd_coo(sp, dev, n)
+    m = S.nnz
+    require(m == S7.nnz and bool(torch.equal(S.indices[:m], S7.indices[:m])),
+            "coo_add(B, B^T)/2 indices differ from phase 7's S")
+    ok, err_s = close(S.vals[:m].cpu().numpy(), S7.vals[:m].cpu().numpy(),
+                      1e-6, 0.0)
+    require(ok, f"coo_add(B, B^T)/2 values off phase 7's S ({err_s})")
+    T = sp.coo_add(sp.coo_tril(S), sp.coo_triu(S, 1))
+    require(T.nnz == m and bool(torch.equal(T.indices[:m], S.indices[:m]))
+            and bool(torch.equal(T.vals[:m], S.vals[:m])),
+            "coo_add(tril(S), triu(S, 1)) is not S")
+    ones = torch.ones(n, device=dev)
+    err = {"coo_add": err_s}
+    for what, sums, op in (("row_sums", sp.row_sums(B), B),
+                           ("col_sums", sp.col_sums(B), Bt)):
+        y = best_spmv(prepare_dia(sp.to_dia(op)), ones)
+        ok, err[what] = close(sums.cpu().numpy(), y.cpu().numpy(), 1e-5,
+                              1e-5)
+        require(ok, f"{what} off K1 (max abs err {err[what]})")
+    rng = np.random.default_rng(2)       # phase 3's scale vectors si, sj
+    si, sj = (rng.uniform(0.5, 1.5, n).astype(np.float32) for _ in range(2))
+    scaled = sp.scale_cols(sp.scale_rows(B, torch.from_numpy(si).to(dev)),
+                           torch.from_numpy(sj).to(dev))
+    ref = (ssp.diags(si.astype(np.float64)) @ host
+           @ ssp.diags(sj.astype(np.float64)))
+    same_as_scipy(torch, sp, scaled, ref, "scale_rows/scale_cols", 1e-6)
+    h = n // 2
+    top = sp.coo_slice(B, (0, 0), (h, n))
+    bot = sp.coo_slice(B, (h, 0), (n, n))
+    ht, hb = host[:h], host[h:]
+    for what, got, want in (
+            ("coo_hstack", sp.coo_hstack(top, bot), ssp.hstack([ht, hb])),
+            ("coo_vstack", sp.coo_vstack(top, bot), ssp.vstack([ht, hb])),
+            ("coo_block_diag", sp.coo_block_diag(top, bot),
+             ssp.block_diag([ht, hb]))):
+        same_as_scipy(torch, sp, got, want, what)
+    small = band_coo(sp, dev, kron_n)
+    r, c, v = banded_entries(kron_n)
+    hs = csr_host(r, c, v, (kron_n, kron_n))
+    K = sp.coo_kron(small, small)
+    same_as_scipy(torch, sp, K, ssp.kron(hs, hs, format="csr"), "coo_kron",
+                  1e-6)
+    return {"S_nnz": m, "err": err, "kron_nnz": K.nnz}
+
+
+def phase_accum(torch, sp, dev, B, n, m: int, r3_nnz: int):
+    """Phase C3: scatter_to_dense on a slice of phase 2's doubled stream,
+    scalar_sum, and permute/project on a rank-3 array."""
+    r, c, v = banded_entries(n)
+    b = sp.CooBuilder((n, n), dtype=np.float32)
+    idx = np.stack([r, c], axis=1)
+    b.add_many(idx, v)
+    b.add_many(idx, v)
+    sl = sp.coo_slice(b.build(device=dev), (0, 0), (m, m))
+    inside = (r < m) & (c < m)
+    require(sl.nnz == 2 * int(inside.sum()), f"slice nnz {sl.nnz}")
+    dense = np.zeros((m, m), np.float32)
+    dense[r[inside], c[inside]] = v[inside]
+    add = sp.scatter_to_dense(sl)
+    require(np.array_equal(add.cpu().numpy(), 2 * dense),
+            "scatter_to_dense ADD is not the doubled entries")
+    # Each entry twice more at -3x: first wins v, last wins -3v.
+    sl = sl.compact()
+    four = sp.coo_concat(sl, sp.coo_scale(sl, -3.0))
+    P = sp.DuplicatePolicy
+    first = sp.scatter_to_dense(four, duplicate_policy=P.LEAVE_ALONE)
+    last = sp.scatter_to_dense(four, duplicate_policy=P.REPLACE)
+    total = sp.scatter_to_dense(four, duplicate_policy=P.ADD)
+    require(np.array_equal(first.cpu().numpy(), dense),
+            "scatter_to_dense LEAVE_ALONE is not first-wins")
+    require(np.array_equal(last.cpu().numpy(), np.float32(-3) * dense),
+            "scatter_to_dense REPLACE is not last-wins")
+    ok, err_add = close(total.cpu().numpy(), -4.0 * dense.astype(np.float64),
+                        1e-6, 0.0)
+    require(ok, f"scatter_to_dense ADD of four copies ({err_add})")
+    got = float(sp.scalar_sum(B))
+    want = float(np.sum(v.astype(np.float64)))
+    require(abs(got - want) <= 1e-5 * abs(want),
+            f"scalar_sum {got!r} vs float64 {want!r}")
+    rng = np.random.default_rng(6)
+    shape = (128, 256, 64)
+    i3 = np.stack([rng.integers(0, s, r3_nnz) for s in shape], 1)
+    v3 = rng.uniform(-1, 1, r3_nnz).astype(np.float32)
+    b3 = sp.CooBuilder(shape, dtype=np.float32)
+    b3.add_many(i3, v3)
+    a3 = b3.build(device=dev)
+    pm = sp.permute_output(a3, (2, 0, 1))
+    require(pm.shape == (64, 128, 256) and np.array_equal(
+        pm.indices[:r3_nnz].cpu().numpy(), i3[:, [2, 0, 1]])
+        and np.array_equal(pm.vals[:r3_nnz].cpu().numpy(), v3),
+        "permute_output differs")
+    pr = sp.consolidate(sp.project_output(a3, (0, 2)))
+    want2 = np.zeros((128, 64))
+    np.add.at(want2, (i3[:, 0], i3[:, 2]), v3.astype(np.float64))
+    ok, err_pr = close(pr.to_dense().cpu().numpy(), want2, 1e-5, 1e-5)
+    require(ok, f"project_output + consolidate ({err_pr})")
+    return {"slice_nnz": sl.nnz, "scalar_sum": got, "scalar_sum_f64": want,
+            "err_add": err_add, "err_project": err_pr}
+
+
+def phase_reorder(torch, sp, dev, B):
+    """Phase C4: scramble, RCM on the host, permute back, to_dia, K1."""
+    from spsparse_torch.ops import (best_spmv, prepare_dia,
+                                    spmv_dia_stream_reference)
+    from spsparse_torch.ops.dia_stream import MAX_DIAGS
+
+    n = B.shape[0]
+    scramble = np.random.default_rng(1).permutation(n)
+    Bs = sp.coo_permute(B, torch.from_numpy(scramble).to(dev))
+    bw_scrambled = sp.bandwidth(Bs)
+    require(bw_scrambled > 0.99 * n,
+            f"scrambled bandwidth {bw_scrambled} is not near n = {n}")
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    perm = sp.rcm_permutation(Bs)
+    rcm_s = time.perf_counter() - t0
+    R = sp.coo_permute(Bs, torch.from_numpy(perm).to(dev))
+    bw = sp.bandwidth(R)
+    require(2 * bw + 1 <= MAX_DIAGS,
+            f"RCM bandwidth {bw}: {2 * bw + 1} diagonals > {MAX_DIAGS}")
+    dia = sp.to_dia(R)
+    idx = Bs.indices[: Bs.nnz].cpu().numpy()
+    vals = Bs.vals[: Bs.nnz].cpu()
+    x_s = np.random.default_rng(5).uniform(-1, 1, n).astype(np.float32)
+    x = torch.from_numpy(x_s[perm]).to(dev)
+    err = {}
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        prep = prepare_dia(dia, dtype=dtype)
+        y = best_spmv(prep, x)
+        plain = spmv_dia_stream_reference(prep, x)
+        sync(torch, dev)
+        ok, e = close(y.cpu().numpy(), plain.cpu().numpy(), 1e-5, 1e-5)
+        require(ok, f"K1 {name} after RCM off its plain version ({e})")
+        # scipy float64 on the scrambled matrix in the operand's precision,
+        # x and y permuted.
+        v64 = vals.to(dtype).double().numpy()
+        ref = csr_host(idx[:, 0], idx[:, 1], v64, (n, n)) @ x_s.astype(
+            np.float64)
+        ok, err[name] = close(y.cpu().numpy(), ref[perm], 1e-5, 1e-5)
+        require(ok, f"K1 {name} after RCM off scipy float64 ({err[name]})")
+    return {"n": n, "bw_scrambled": bw_scrambled, "bw": bw,
+            "diags": len(dia.offsets), "rcm_s": rcm_s, "err": err}
+
+
+def phase_interop(torch, sp, dev, n):
+    """Phase C5: config 2c through to_scipy and back through from_scipy."""
+    rows, cols, vals, _ = cfg2c_entries(n)
+    A = build_coo(sp, dev, (n, n), rows, cols, vals)
+    M = sp.core.to_scipy(A)
+    require(np.array_equal(M.row, rows) and np.array_equal(M.col, cols)
+            and np.array_equal(M.data, vals.astype(np.float64)),
+            "to_scipy entries differ")
+    k = A.nnz
+    for dtype in (np.float32, None):
+        back = sp.core.from_scipy(M, dtype=dtype, device=dev)
+        require(back.nnz == k and back.shape == A.shape
+                and bool(torch.equal(back.indices[:k], A.indices[:k]))
+                and bool(torch.equal(back.vals[:k],
+                                     A.vals[:k].to(back.vals.dtype))),
+                f"from_scipy(to_scipy(A)) differs ({dtype})")
+    return {"nnz": k}
+
+
+def core_path(torch, sp, dev, n=N, kron_n=CORE_KRON_N, slice_m=CORE_SLICE_M,
+              r3_nnz=CORE_R3_NNZ, n_query=CORE_QUERIES) -> dict:
+    """Phases C1-C5 on ``dev``: joins, algebra and constructors,
+    accumulators, the reorder-to-K1 path and scipy interop at the main
+    path's width. Each phase logs its host wall time and the path's peak
+    device memory so far."""
+    def done(what, t0, state):
+        sync(torch, dev)
+        peak = (torch.cuda.max_memory_allocated()
+                if torch.device(dev).type == "cuda" else None)
+        log(f"phase {what} ({time.perf_counter() - t0:.3f} s; peak device "
+            f"memory {peak} bytes)")
+        state.setdefault("wall_s", {})[what.split()[0]] = (
+            time.perf_counter() - t0)
+        state.setdefault("peak_bytes", {})[what.split()[0]] = peak
+
+    st: dict = {}
+    t0 = time.perf_counter()
+    B = band_coo(sp, dev, n)
+    j = phase_joins(torch, sp, dev, B, n_query)
+    done(f"C1 joins: join2 n_match {j['n_match']} = nnz, join3 with the "
+         f"diagonal n; intersect_mask {j['n_found']} of {j['n_query']} "
+         f"queries", t0, st)
+    t0 = time.perf_counter()
+    alg = phase_algebra(torch, sp, dev, B, j["Bt"], j["host"], kron_n)
+    done(f"C2 algebra: S nnz {alg['S_nnz']}, max abs err {alg['err']}; "
+         f"stacking exact; kron nnz {alg['kron_nnz']}", t0, st)
+    t0 = time.perf_counter()
+    acc = phase_accum(torch, sp, dev, B, n, slice_m, r3_nnz)
+    done(f"C3 accumulators: slice nnz {acc['slice_nnz']}; scalar_sum "
+         f"{acc['scalar_sum']!r} vs {acc['scalar_sum_f64']!r}; ADD err "
+         f"{acc['err_add']!r}, project err {acc['err_project']!r}", t0, st)
+    del j
+    t0 = time.perf_counter()
+    ro = phase_reorder(torch, sp, dev, B)
+    done(f"C4 reorder: n {ro['n']}, bandwidth {ro['bw_scrambled']} "
+         f"scrambled -> {ro['bw']} after RCM ({ro['diags']} diagonals); host "
+         f"rcm_permutation {ro['rcm_s']!r} s; K1 max abs err vs scipy "
+         f"{ro['err']}", t0, st)
+    t0 = time.perf_counter()
+    io = phase_interop(torch, sp, dev, n)
+    done(f"C5 interop: config 2c {io['nnz']} entries through to_scipy and "
+         f"from_scipy exact", t0, st)
+    st.update(reorder=ro, nnz=B.nnz)
+    return st
+
+
 def time_ms(torch, fn, *, reps: int = 15, inner: int = 10,
             warmup: int = 3) -> list[float]:
     """Per-call milliseconds of ``reps`` CUDA-event-timed runs of ``inner``
@@ -2398,6 +2730,18 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"phase 25 timing ({time.perf_counter() - t_timing:.3f} s)")
 
+    # The core path runs after the timing so that its host work and the
+    # device memory it leaves cached do not reach the kernels' times.
+    torch.cuda.reset_peak_memory_stats()
+    core, core_counts = run_path(torch, wrappers, core_path, torch, sp, dev)
+    log(f"core path kernel launches: {core_counts}; peak device memory "
+        f"{torch.cuda.max_memory_allocated()} bytes")
+    require(core_counts["spmv_dia_stream"] > 0,
+            "kernel spmv_dia_stream was not launched on the core path")
+    for row in rows:
+        if row["name"] == "spmv_dia_stream":
+            row["launches_core_path"] = core_counts["spmv_dia_stream"]
+
     for row in rows:
         print(json.dumps({
             "timing": row["name"], "dtype": row["dtype"],
@@ -2422,6 +2766,15 @@ def main() -> int:
     print(json.dumps({"timing": "unstructured SpMV entry points, config 2c",
                       **un_ends, "device": card, "nvidia_smi": smi}),
           flush=True)
+    print(json.dumps({"timing": "core path, phases C1-C5",
+                      "wall_s": core["wall_s"],
+                      "peak_bytes": core["peak_bytes"],
+                      "n": core["reorder"]["n"],
+                      "rcm_host_s": core["reorder"]["rcm_s"],
+                      "bandwidth_scrambled": core["reorder"]["bw_scrambled"],
+                      "bandwidth_rcm": core["reorder"]["bw"],
+                      "k1_launches": core_counts["spmv_dia_stream"],
+                      "device": card, "nvidia_smi": smi}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

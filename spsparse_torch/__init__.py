@@ -4,7 +4,9 @@ The same library as :mod:`spsparse_tpu` — rank-N padded COO arrays,
 duplicate-consolidating sort, CSR/ELL/DIA views, the diag-scaled sparse
 multiply chain, SpMV/SpMM over DIA, BSR, tiled and prepared general
 operands, SpGEMM, unstructured SpMV (the shuffle layout, the CSR segmented
-sum), the bitonic block sort, and NetCDF I/O — on PyTorch tensors, with the
+sum), the bitonic block sort, sorted-merge joins, accumulators,
+constructors, elementwise algebra, RCM reordering, scipy interop, and
+NetCDF I/O (classic and NetCDF-4) — on PyTorch tensors, with the
 TPU's Pallas kernels rewritten as hand-written CUDA kernels for Hopper
 (``spsparse_torch/csrc``, built by :mod:`spsparse_torch.backend` on first
 use). Every kernel has a plain PyTorch version beside it, taken for CPU
@@ -40,7 +42,40 @@ from .core import (
     to_bsr,
     SparseTiledCOO,
     to_tiled,
+    coo_concat,
+    coo_binop,
+    coo_multiply,
+    coo_maximum,
+    coo_minimum,
+    coo_power,
+    coo_add,
+    coo_scale,
+    coo_hstack,
+    coo_vstack,
+    coo_block_diag,
+    coo_norm,
     coo_eye,
+    coo_diags,
+    coo_random,
+    coo_slice,
+    coo_kron,
+    coo_kronsum,
+    coo_filter,
+    coo_tril,
+    coo_triu,
+    rcm_permutation,
+    coo_permute,
+    bandwidth,
+    row_sums,
+    col_sums,
+    scale_rows,
+    scale_cols,
+    join2,
+    join3,
+    scatter_to_dense,
+    scalar_sum,
+    permute_output,
+    project_output,
     default_device,
 )
 

@@ -20,7 +20,8 @@ then merged:
 * ``ADD`` sums each run into its own output slot — a segmented sum. It is
   never the difference of one global prefix sum, whose cancellation error
   grows with the total instead of the run (see the JAX docstring of
-  ``merge_sorted_entries``). ``method="scatter"`` sums with ``index_add_``,
+  ``merge_sorted_entries``). ``method="scatter"`` (or any name other than
+  ``"compact"``, as in the JAX package) sums with ``index_add_``,
   which runs left to right per cell on the CPU (bitwise the reference's
   sequential scan); ``method="compact"`` sums each run with
   ``torch.segment_reduce``, deterministic on every device (floating values;
@@ -194,9 +195,9 @@ def sorted_permutation(a: SparseCOO, sort_order: Sequence[int]) -> Tensor:
 
 
 def _segment_sum(vals: Tensor, is_new: Tensor, method: str) -> Tensor:
-    """Sum of each run of a non-empty stream (see the module docstring)."""
-    if method not in ("compact", "scatter"):
-        raise ValueError(f"unknown merge method {method!r}")
+    """Sum of each run of a non-empty stream (see the module docstring).
+    Any ``method`` other than ``"compact"`` takes the scatter merge, as in
+    the JAX package."""
     if method == "compact" and vals.dtype.is_floating_point:
         starts = torch.nonzero(is_new).squeeze(1)
         ends = torch.cat([starts[1:], starts.new_tensor([vals.numel()])])

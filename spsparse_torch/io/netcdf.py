@@ -10,10 +10,9 @@ the reference's NetCDF layer (``netcdf.hpp:86-138``): per array ``vname``
   ``rank`` uint64 values.
 
 Files are classic NetCDF (CDF-1/2/5, CDF-5 by default) through the in-tree
-codec :mod:`spsparse_torch.io.cdf`, so files written by either package load
-in the other. The NetCDF-4/HDF5 container (``io/nc4.py`` in the JAX
-package) is not ported yet: writing ``version=4`` or reading an HDF5 file
-raises ``NotImplementedError``.
+codec :mod:`spsparse_torch.io.cdf`, or NetCDF-4/HDF5 (``version=4``)
+through :mod:`spsparse_torch.io.nc4`, which needs ``h5py``; reads detect
+the container. Files written by either package load in the other.
 """
 
 from __future__ import annotations
@@ -25,38 +24,21 @@ import numpy as np
 from ..core.coo import SparseCOO, default_index_dtype, numpy_dtype
 from ..core.errors import spsparse_error
 from .cdf import NcAttr, NcFile, read_cdf, write_cdf
+from .nc4 import is_hdf5, read_nc4, write_nc4
 
 __all__ = ["save_netcdf", "load_netcdf", "NcIO", "ncio_spsparse", "is_hdf5"]
 
-_MAGIC_HDF5 = b"\x89HDF\r\n\x1a\n"
-_NC4_TODO = ("NetCDF-4/HDF5 files need io/nc4.py, which is not ported yet "
-             "(ROADMAP queue 1, slice 1b)")
-
-
-def is_hdf5(path) -> bool:
-    """True if ``path`` holds an HDF5 superblock (at 0, 512, 1024, ...)."""
-    with open(path, "rb") as f:
-        f.seek(0, 2)
-        size = f.tell()
-        off = 0
-        while off < size:
-            f.seek(off)
-            if f.read(8) == _MAGIC_HDF5:
-                return True
-            off = 512 if off == 0 else off * 2
-    return False
-
 
 def _read_any(path) -> NcFile:
-    if is_hdf5(path):
-        raise NotImplementedError(_NC4_TODO)
-    return read_cdf(path)
+    """Dispatch on the container: HDF5/NetCDF-4 or classic CDF."""
+    return read_nc4(path) if is_hdf5(path) else read_cdf(path)
 
 
 def _write_any(path, nc: NcFile) -> None:
     if nc.version == 4:
-        raise NotImplementedError(_NC4_TODO)
-    write_cdf(path, nc)
+        write_nc4(path, nc)
+    else:
+        write_cdf(path, nc)
 
 
 def _write_array(nc: NcFile, A: SparseCOO, vname: str) -> None:
@@ -103,7 +85,7 @@ def _read_array(nc: NcFile, vname: str, *, rank: int | None = None,
 def save_netcdf(path, arrays: dict[str, SparseCOO], *,
                 version: int = 5) -> None:
     """Write named sparse arrays to ``path`` in the reference schema
-    (``version`` 1/2/5 = classic CDF)."""
+    (``version`` 1/2/5 = classic CDF, 4 = NetCDF-4/HDF5 through h5py)."""
     nc = NcFile(version=version)
     for vname, A in arrays.items():
         _write_array(nc, A, vname)
@@ -115,7 +97,7 @@ def load_netcdf(path, vname: str, *, rank: int | None = None,
                 dtype=np.float64, cap: int | None = None,
                 device=None) -> SparseCOO:
     """Read one sparse array written by :func:`save_netcdf`, by the JAX
-    package, or by the reference library into a classic-format file, onto
+    package, or by the reference library, classic or NetCDF-4, onto
     ``device`` (the card by default)."""
     return _read_array(_read_any(path), vname, rank=rank, shape=shape,
                        alloc=alloc, dtype=dtype, cap=cap, device=device)

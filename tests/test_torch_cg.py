@@ -32,6 +32,7 @@ from spsparse_torch.convert import dia_from_numpy, tensor_to_numpy
 from spsparse_torch.ops import cg_solve_dia_reference, prepare_dia
 from spsparse_torch.ops.dia_cg import (CG_LANE_ROWS, CG_RESERVED_SMEM,
                                        CG_THREADS, cg_geometry)
+from port_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # Cards for the geometry: an H100 SXM (132 SMs, 228 KB of shared memory an
 # SM, 227 KB a CTA: at PALLAS_N rows, n below the grid), one SM of it (one

@@ -17,6 +17,7 @@ import torch
 import spsparse_tpu as jsp
 import spsparse_torch as tsp
 from spsparse_torch.convert import coo_to_numpy, tensor_to_numpy
+from port_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 POLICIES = ["ADD", "LEAVE_ALONE", "REPLACE"]

@@ -24,6 +24,7 @@ from spsparse_torch.ops import (best_spmv, prepare_dia, spmv_dia_chain,
                                 spmv_dia_chain_reference, spmv_dia_stream,
                                 spmv_dia_stream_reference)
 from spsparse_torch.ops.dia_stream import MAX_DIAGS, PreparedDIA
+from port_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def banded(rng, n, offsets):

@@ -42,6 +42,7 @@ from spsparse_torch.ops import best_spmv as t_best_spmv
 from spsparse_torch.ops import prepare_general as t_prepare
 from spsparse_torch.ops import spmm_general as t_spmm
 from spsparse_torch.ops import spmv_general as t_spmv
+from port_threads import one_torch_thread  # noqa: F401 (autouse)
 
 tn = cv.tensor_to_numpy
 

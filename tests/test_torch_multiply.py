@@ -16,15 +16,16 @@ import spsparse_torch as tsp
 from spsparse_tpu.ops import multiply as j_multiply, multiply_mv as j_mv
 from spsparse_torch.convert import coo_to_numpy
 from spsparse_torch.ops import multiply as t_multiply, multiply_mv as t_mv
+from port_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
-def build_both(shape, idx, vals):
+def build_both(shape, idx, vals, cap=None):
     jb = jsp.CooBuilder(shape, dtype=np.float64)
     tb = tsp.CooBuilder(shape, dtype=np.float64)
     if len(vals):
         jb.add_many(idx, vals)
         tb.add_many(idx, vals)
-    return jb.build(), tb.build(device="cpu")
+    return jb.build(cap=cap), tb.build(cap=cap, device="cpu")
 
 
 def random_both(rng, shape, nnz):
@@ -33,11 +34,13 @@ def random_both(rng, shape, nnz):
 
 
 def scale_both(rng, n):
-    """A sparse scale vector: ~3/4 of the indices present, some exactly 0."""
+    """A sparse scale vector: ~3/4 of the indices present, some exactly 0.
+    Capacity 8 whatever the count (n <= 8 here), so that every seed's
+    operands have one shape and share the JAX package's compiles."""
     present = np.nonzero(rng.random(n) < 0.75)[0]
     vals = rng.uniform(0.5, 2.0, present.size)
     vals[rng.random(present.size) < 0.2] = 0.0
-    return build_both((n,), present[:, None], vals)
+    return build_both((n,), present[:, None], vals, cap=8)
 
 
 def assert_same(j, t, *, bitwise=False):

@@ -36,6 +36,7 @@ from spsparse_torch.ops import (cg_solve_dia, cg_solve_dia_reference,
                                 prepare_dia, spmm_dia_mrhs,
                                 spmm_dia_mrhs_reference, spmv_dia_stream)
 import spsparse_tpu.solvers as js
+from port_threads import one_torch_thread  # noqa: F401 (autouse)
 
 F64 = dict(rtol=1e-9, atol=1e-11)
 

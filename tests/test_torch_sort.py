@@ -38,6 +38,7 @@ from spsparse_torch.ops import sort_blocks_stable as t_stable
 from spsparse_tpu.ops.pallas_sort import plan_stages as j_plan
 from spsparse_tpu.ops.pallas_sort import sort_blocks as j_sort
 from spsparse_tpu.ops.pallas_sort import sort_blocks_stable as j_stable
+from port_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def canon(arrays):

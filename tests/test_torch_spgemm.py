@@ -71,6 +71,7 @@ from spsparse_tpu.ops.spgemm_tiled import tiled_blocks_to_coo as j_to_coo
 from spsparse_tpu.ops.spgemm_window import band_to_tiled_blocks as j_b2t
 from spsparse_tpu.ops.spgemm_window import plan_window_spgemm as j_wplan
 from spsparse_tpu.ops.spgemm_window import spgemm_window_pallas as j_k8
+from port_threads import one_torch_thread  # noqa: F401 (autouse)
 
 tn = cv.tensor_to_numpy
 routes = chip_smoke.traced_routes

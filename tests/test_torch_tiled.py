@@ -37,6 +37,7 @@ from spsparse_torch.ops import tiled_ops as tto
 from spsparse_torch.ops import tiled_spmm as tts
 from spsparse_torch.ops import tiled_window as ttw
 from spsparse_torch.solvers import extract_diagonal as t_diag
+from port_threads import one_torch_thread  # noqa: F401 (autouse)
 
 tn = cv.tensor_to_numpy
 

@@ -49,6 +49,7 @@ from spsparse_tpu.ops.spmv_kernels import best_spmv as j_best
 from spsparse_tpu.ops.spmv_shuffle import PreparedShuffleSpMV as JPrep
 from spsparse_tpu.ops.spmv_shuffle import prepare_shuffle_spmv as j_prepare
 from spsparse_tpu.ops.spmv_shuffle import spmv_shuffle as j_spmv
+from port_threads import one_torch_thread  # noqa: F401 (autouse)
 
 tn = cv.tensor_to_numpy
 FIELDS = ("octet", "idx", "vals", "dest", "filler_dest", "extra_rows",
