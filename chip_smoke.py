@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the spsparse_torch main path, solve path, SpMM path, SpGEMM path,
-unstructured SpMV path and core path once on one CUDA card and check them.
+unstructured SpMV path, core path and solver path once on one CUDA card and
+check them.
 
     python3 chip_smoke.py
 
@@ -150,6 +151,35 @@ C4. Reorder to K1: ``B`` scrambled by ``coo_permute`` with a permutation
     float64 product of the scrambled matrix with x and y permuted.
 C5. Interop: config 2c's matrix through ``to_scipy`` and ``from_scipy``;
     indices and values exact.
+The solver path (``solver_path``), the rest of ``solvers/`` and the native
+host library (built by ``g++`` from ``csrc/*.cpp``; ``native.available()``
+must be true), on three operators built through ``CooBuilder``, ``to_dia``
+and ``prepare_dia``, each float32 product with them kernel K1 (the
+transpose's DIA for ``B^T``): P, the 2-D 5-point Poisson operator of a
+1024 x 1024 grid (2**20 rows, 5,238,784 entries); B, config 2's band and
+B^T; S = (B + B^T)/2 + 11 I:
+
+V1. ``amg_setup(P)`` (the host aggregation timed a level), then
+    ``pcg_solve`` over K1 with the hierarchy and with Jacobi, 50
+    iterations each: float64 residuals on the host, AMG's at least 100x
+    below Jacobi's.
+V2. ``lanczos_eigsh`` (k = 6, largest, 256 steps) on S over K1: residuals
+    at most 1e-3 |lambda|; ``lobpcg_solve`` (a block of 8, K3 as
+    ``matmat``, 100 iterations): its top value within 1e-4 of Lanczos's; ``expm_multiply(-0.1 S) v`` against scipy (1e-4 of max).
+V3. ``lsqr_solve``, ``lsmr_solve``, ``cgls_solve`` on B over K1 both ways,
+    50 iterations: normal-equation residuals at most twice scipy lsqr's
+    at the same count (plus 1e-4 of ||B^T b||); ``svds_lanczos`` (k = 6):
+    both singular-vector residuals at most 1e-3 sigma.
+V4. ``splu(S)`` and ``spsolve(S, b)`` (host LU and substitution: the
+    factors have n levels) against scipy's spsolve; ``spsolve_triangular
+    (tril(P), b)`` in float32 by ``auto``: 2,047 levels, 2,046 device
+    sweeps, one K1 launch each, against scipy's spsolve_triangular.
+V5. ``eigsh(S, k = 6, sigma = 7.6)`` by shift-invert through ``splu`` (RCM
+    order) against scipy's eigsh (rtol 1e-6) and float64 residuals;
+    ``onenormest`` of B through a ``LinearOperator`` of K1 both ways: an
+    attained column sum of B, at most ||B||_1.
+V6. ``inv`` and ``expm`` of B's leading 2048 x 2048 block against scipy's
+    dense float64 ``inv`` and ``expm``.
 
 25. Time every kernel against its plain version (CUDA events, in turns:
     plain, kernel, kernel, plain), and one PyTorch library call computing
@@ -175,8 +205,10 @@ C5. Interop: config 2c's matrix through ``to_scipy`` and ``from_scipy``;
     the (warp block, k-chunk) units whose two sides hold a nonzero, which
     is the work the kernels cannot skip).
 
-The launch counters of the kernel wrappers are reset before each path and
-read after it; a kernel of the path launched no time there fails the run.
+The core path and the solver path run after phase 25, so that their host
+work cannot reach the kernels' times. The launch counters of the kernel
+wrappers are reset before each path and read after it; a kernel of the
+path launched no time there fails the run.
 The last lines are a JSON line per timing, the ``{"kernels": [...]}`` line,
 the card's name and power limit from nvidia-smi, and the result line
 ``{"ok": true, "device": {...}}``.
@@ -224,6 +256,14 @@ CORE_KRON_N = 512    # rows of each band in C2's coo_kron
 CORE_SLICE_M = 4096  # C3's square slice of phase 2's stream
 CORE_R3_NNZ = 10 ** 6  # entries of C3's rank-3 array
 CORE_QUERIES = 10 ** 6  # random keys C1 probes with intersect_mask
+POISSON_SIDE = 1024  # grid side of the solver path's Poisson operator P
+SOLVER_ITERS = 50    # PCG, LSQR, LSMR and CGLS iterations of V1 and V3
+EIG_K = 6            # eigenpairs and singular triplets of V2, V3 and V5
+LANCZOS_ITERS = 256  # Krylov size of V2's Lanczos and V3's svds
+LOBPCG_ITERS = 100
+EXPM_T = 0.1         # V2's expm_multiply(-t S) v
+SIGMA = 7.6          # V5's shift, near the bottom of S's spectrum
+MATFUNC_M = 2048     # rows of V6's slice of B
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12     # H100 SXM bfloat16 on the tensor cores
@@ -1932,50 +1972,415 @@ def phase_interop(torch, sp, dev, n):
     return {"nnz": k}
 
 
+def phase_done(torch, dev, what, t0, state):
+    """Log a phase's host wall time and the peak device memory so far, and
+    keep both in ``state`` under the phase's first word."""
+    sync(torch, dev)
+    peak = (torch.cuda.max_memory_allocated()
+            if torch.device(dev).type == "cuda" else None)
+    log(f"phase {what} ({time.perf_counter() - t0:.3f} s; peak device "
+        f"memory {peak} bytes)")
+    state.setdefault("wall_s", {})[what.split()[0]] = (
+        time.perf_counter() - t0)
+    state.setdefault("peak_bytes", {})[what.split()[0]] = peak
+
+
 def core_path(torch, sp, dev, n=N, kron_n=CORE_KRON_N, slice_m=CORE_SLICE_M,
               r3_nnz=CORE_R3_NNZ, n_query=CORE_QUERIES) -> dict:
     """Phases C1-C5 on ``dev``: joins, algebra and constructors,
     accumulators, the reorder-to-K1 path and scipy interop at the main
     path's width. Each phase logs its host wall time and the path's peak
     device memory so far."""
-    def done(what, t0, state):
-        sync(torch, dev)
-        peak = (torch.cuda.max_memory_allocated()
-                if torch.device(dev).type == "cuda" else None)
-        log(f"phase {what} ({time.perf_counter() - t0:.3f} s; peak device "
-            f"memory {peak} bytes)")
-        state.setdefault("wall_s", {})[what.split()[0]] = (
-            time.perf_counter() - t0)
-        state.setdefault("peak_bytes", {})[what.split()[0]] = peak
-
     st: dict = {}
     t0 = time.perf_counter()
     B = band_coo(sp, dev, n)
     j = phase_joins(torch, sp, dev, B, n_query)
-    done(f"C1 joins: join2 n_match {j['n_match']} = nnz, join3 with the "
-         f"diagonal n; intersect_mask {j['n_found']} of {j['n_query']} "
-         f"queries", t0, st)
+    phase_done(torch, dev, f"C1 joins: join2 n_match {j['n_match']} = nnz, "
+               f"join3 with the diagonal n; intersect_mask {j['n_found']} "
+               f"of {j['n_query']} queries", t0, st)
     t0 = time.perf_counter()
     alg = phase_algebra(torch, sp, dev, B, j["Bt"], j["host"], kron_n)
-    done(f"C2 algebra: S nnz {alg['S_nnz']}, max abs err {alg['err']}; "
-         f"stacking exact; kron nnz {alg['kron_nnz']}", t0, st)
+    phase_done(torch, dev, f"C2 algebra: S nnz {alg['S_nnz']}, max abs err "
+               f"{alg['err']}; stacking exact; kron nnz {alg['kron_nnz']}",
+               t0, st)
     t0 = time.perf_counter()
     acc = phase_accum(torch, sp, dev, B, n, slice_m, r3_nnz)
-    done(f"C3 accumulators: slice nnz {acc['slice_nnz']}; scalar_sum "
-         f"{acc['scalar_sum']!r} vs {acc['scalar_sum_f64']!r}; ADD err "
-         f"{acc['err_add']!r}, project err {acc['err_project']!r}", t0, st)
+    phase_done(torch, dev, f"C3 accumulators: slice nnz {acc['slice_nnz']}; "
+               f"scalar_sum {acc['scalar_sum']!r} vs "
+               f"{acc['scalar_sum_f64']!r}; ADD err {acc['err_add']!r}, "
+               f"project err {acc['err_project']!r}", t0, st)
     del j
     t0 = time.perf_counter()
     ro = phase_reorder(torch, sp, dev, B)
-    done(f"C4 reorder: n {ro['n']}, bandwidth {ro['bw_scrambled']} "
-         f"scrambled -> {ro['bw']} after RCM ({ro['diags']} diagonals); host "
-         f"rcm_permutation {ro['rcm_s']!r} s; K1 max abs err vs scipy "
-         f"{ro['err']}", t0, st)
+    phase_done(torch, dev, f"C4 reorder: n {ro['n']}, bandwidth "
+               f"{ro['bw_scrambled']} scrambled -> {ro['bw']} after RCM "
+               f"({ro['diags']} diagonals); host rcm_permutation "
+               f"{ro['rcm_s']!r} s; K1 max abs err vs scipy {ro['err']}",
+               t0, st)
     t0 = time.perf_counter()
     io = phase_interop(torch, sp, dev, n)
-    done(f"C5 interop: config 2c {io['nnz']} entries through to_scipy and "
-         f"from_scipy exact", t0, st)
+    phase_done(torch, dev, f"C5 interop: config 2c {io['nnz']} entries "
+               f"through to_scipy and from_scipy exact", t0, st)
     st.update(reorder=ro, nnz=B.nnz)
+    return st
+
+
+# ----------------------------------------------------------------------
+# The solver path: the rest of solvers/ and the native host library
+# ----------------------------------------------------------------------
+
+def poisson_entries(side: int):
+    """Row-major (rows, cols, vals) of the 2-D 5-point Poisson operator on a
+    ``side x side`` grid: 4 on the diagonal, -1 to each grid neighbour
+    (offsets 0, +-1, +-side), float32."""
+    n = side * side
+    i = np.arange(n)
+    x = i % side
+    parts = [(i, i, np.full(n, 4.0))]
+    for d, ok in ((-side, i >= side), (-1, x > 0), (1, x < side - 1),
+                  (side, i < n - side)):
+        parts.append((i[ok], i[ok] + d, np.full(int(ok.sum()), -1.0)))
+    r, c, v = (np.concatenate(p) for p in zip(*parts))
+    order = np.lexsort((c, r))
+    return (r[order].astype(np.int32), c[order].astype(np.int32),
+            v[order].astype(np.float32))
+
+
+def shifted_spd_coo(sp, dev, n):
+    """``S = (B + B^T)/2 + SHIFT I`` through the builder (phase 7's recipe
+    plus the shift K4 solves with), consolidated: SPD by Gershgorin."""
+    r, c, v = banded_entries(n)
+    half = (np.float32(0.5) * v).astype(np.float32)
+    b = sp.CooBuilder((n, n), dtype=np.float32)
+    b.add_many(np.stack([r, c], axis=1), half)
+    b.add_many(np.stack([c, r], axis=1), half)
+    d = np.arange(n)
+    b.add_many(np.stack([d, d], axis=1), np.full(n, SHIFT, np.float32))
+    return sp.consolidate(b.build(device=dev))
+
+
+def k1_operator(sp, A):
+    """``(A, its DIA prepared for K1, host float64 CSR)``; K1's product."""
+    from spsparse_torch.ops import prepare_dia
+
+    return A, prepare_dia(sp.to_dia(A)), _csr_of(A)
+
+
+def solver_operators(torch, sp, dev, side, n):
+    """P (Poisson), B (config 2's band) and B^T, S (shifted SPD band), each
+    built through ``CooBuilder``, ``to_dia`` and ``prepare_dia`` for K1."""
+    P = build_coo(sp, dev, (side * side,) * 2, *poisson_entries(side))
+    B = band_coo(sp, dev, n)
+    ops = {"P": k1_operator(sp, sp.consolidate(P)), "B": k1_operator(sp, B),
+           "Bt": k1_operator(sp, sp.consolidate(B.T)),
+           "S": k1_operator(sp, shifted_spd_coo(sp, dev, n))}
+    require(ops["P"][1].offsets == (-side, -1, 0, 1, side),
+            f"P offsets {ops['P'][1].offsets}")
+    return ops
+
+
+def k1(prep):
+    from spsparse_torch.ops import best_spmv
+
+    return lambda v: best_spmv(prep, v)
+
+
+def rel_residual(A_host, x, b) -> float:
+    """``||b - A x|| / ||b||`` in float64 on the host."""
+    x = np.asarray(x, np.float64)
+    b = np.asarray(b, np.float64)
+    return float(np.linalg.norm(b - A_host @ x) / np.linalg.norm(b))
+
+
+def host_f32(rng_seed, shape):
+    return np.random.default_rng(rng_seed).uniform(-1, 1, shape).astype(
+        np.float32)
+
+
+def phase_amg(torch, sp, dev, ops):
+    """V1: AMG setup on P; PCG over K1 with the V-cycle and with Jacobi, 50
+    iterations each; float64 residuals on the host."""
+    import spsparse_torch.solvers.amg as amg_mod
+
+    P, prep, host = ops["P"]
+    n = P.shape[0]
+    agg_s = []
+    greedy = amg_mod._greedy_aggregate
+
+    def timed(*args):
+        t0 = time.perf_counter()
+        out = greedy(*args)
+        agg_s.append(time.perf_counter() - t0)
+        return out
+
+    amg_mod._greedy_aggregate = timed
+    t0 = time.perf_counter()
+    try:
+        h = sp.solvers.amg_setup(P)
+    finally:
+        amg_mod._greedy_aggregate = greedy
+    sync(torch, dev)
+    setup_s = time.perf_counter() - t0
+    sizes = [lvl.a.shape[0] for lvl in h.levels]
+    require(len(sizes) >= 2 and sizes[0] == n and sizes[-1] <= 4096,
+            f"AMG level sizes {sizes}")
+    bh = host_f32(11, n)
+    b = torch.from_numpy(bh).to(dev)
+    x_amg, _ = sp.solvers.pcg_solve(k1(prep), b, iters=SOLVER_ITERS, minv=h)
+    jac = torch.full((n,), 0.25, device=dev)
+    x_jac, _ = sp.solvers.pcg_solve(k1(prep), b, iters=SOLVER_ITERS,
+                                    minv=jac)
+    sync(torch, dev)
+    res = {name: rel_residual(host, x.cpu().numpy(), bh)
+           for name, x in (("amg", x_amg), ("jacobi", x_jac))}
+    require(np.isfinite(res["amg"]) and res["amg"] * 100 <= res["jacobi"],
+            f"AMG-PCG residual {res['amg']} not 100x below Jacobi-PCG's "
+            f"{res['jacobi']}")
+    return {"sizes": sizes, "setup_s": setup_s, "aggregate_s": agg_s,
+            "residual": res}
+
+
+def eigen_residuals(A_host, vals, vecs) -> np.ndarray:
+    """``||A v - lam v|| / |lam|`` per pair, float64 on the host."""
+    V = np.asarray(vecs, np.float64)
+    lam = np.asarray(vals, np.float64)
+    return np.linalg.norm(A_host @ V - V * lam, axis=0) / np.abs(lam)
+
+
+def phase_spectral(torch, sp, dev, ops):
+    """V2: Lanczos (k = 6, largest) on S over K1; LOBPCG with a block of 8
+    over K3; expm_multiply(-t S) v over K1; against float64 residuals,
+    each other and scipy."""
+    import scipy.sparse.linalg as sla
+    from spsparse_torch.ops import spmm_dia_mrhs
+
+    S, prep, host = ops["S"]
+    n = S.shape[0]
+    v0 = torch.from_numpy(host_f32(12, n)).to(dev)
+    vals, vecs = sp.solvers.lanczos_eigsh(
+        k1(prep), v0, k=EIG_K, iters=min(LANCZOS_ITERS, n), which="LA")
+    X0 = torch.from_numpy(host_f32(13, (n, RHS))).to(dev)
+    lob, _ = sp.solvers.lobpcg_solve(
+        lambda M: spmm_dia_mrhs(prep, M.T).T, X0, iters=LOBPCG_ITERS,
+        largest=True)
+    v = host_f32(14, n)
+    y = sp.solvers.expm_multiply(k1(prep), torch.from_numpy(v).to(dev),
+                                 t=-EXPM_T)
+    sync(torch, dev)
+    vals_h = vals.cpu().numpy()
+    res = eigen_residuals(host, vals_h, vecs.cpu().numpy())
+    require(bool(np.all(res <= 1e-3)),
+            f"Lanczos residuals {res.tolist()} above 1e-3 |lam|")
+    top_lob, top_lan = float(lob[0]), float(vals_h[-1])
+    require(abs(top_lob - top_lan) <= 1e-4 * abs(top_lan),
+            f"LOBPCG's top value {top_lob!r} off Lanczos's {top_lan!r}")
+    ref = sla.expm_multiply(-EXPM_T * host, v.astype(np.float64))
+    ok, err = close(y.cpu().numpy(), ref, 0.0, 1e-4)
+    require(ok, f"expm_multiply off scipy (max abs err {err})")
+    return {"vals": vals_h.tolist(), "residual": float(res.max()),
+            "lobpcg_top": top_lob, "expm_err": err}
+
+
+def phase_lstsq(torch, sp, dev, ops):
+    """V3: LSQR, LSMR and CGLS on B over K1 both ways, normal-equation
+    residuals against scipy's lsqr at the same iteration count; svds_lanczos
+    (k = 6) with float64 residuals of both singular-vector equations."""
+    import scipy.sparse.linalg as sla
+
+    B, prep, host = ops["B"]
+    prep_t = ops["Bt"][1]
+    n = B.shape[0]
+    bh = host_f32(15, n)
+    b = torch.from_numpy(bh).to(dev)
+    b64 = bh.astype(np.float64)
+
+    def normal_res(x):
+        return float(np.linalg.norm(host.T @ (b64 - host @ np.asarray(
+            x, np.float64))))
+
+    x_s = sla.lsqr(host, b64, atol=0.0, btol=0.0, conlim=0.0,
+                   iter_lim=SOLVER_ITERS)[0]
+    want = normal_res(x_s)
+    floor = 1e-4 * float(np.linalg.norm(host.T @ b64))
+    got = {}
+    for name in ("lsqr", "lsmr", "cgls"):
+        x, _ = getattr(sp.solvers, f"{name}_solve")(
+            k1(prep), k1(prep_t), b, iters=SOLVER_ITERS)
+        sync(torch, dev)
+        got[name] = normal_res(x.cpu().numpy())
+        require(np.isfinite(got[name]) and got[name] <= 2 * want + floor,
+                f"{name}: normal-equation residual {got[name]} vs scipy "
+                f"lsqr's {want} (floor {floor})")
+    U, s, Vt = sp.solvers.svds_lanczos(
+        k1(prep), k1(prep_t), torch.from_numpy(host_f32(16, n)).to(dev),
+        k=EIG_K, iters=min(LANCZOS_ITERS, n))
+    sync(torch, dev)
+    Uh, sh, Vh = (t.cpu().numpy().astype(np.float64) for t in (U, s, Vt))
+    r_u = np.linalg.norm(host @ Vh.T - Uh * sh, axis=0) / sh
+    r_v = np.linalg.norm(host.T @ Uh - Vh.T * sh, axis=0) / sh
+    require(bool(np.all(np.diff(sh) <= 0)) and bool(np.all(r_u <= 1e-3))
+            and bool(np.all(r_v <= 1e-3)),
+            f"svds: s {sh.tolist()}, residuals {r_u.tolist()} "
+            f"{r_v.tolist()} above 1e-3 s")
+    return {"normal_res": got, "scipy_lsqr": want, "sigma": sh.tolist(),
+            "svds_residual": float(max(r_u.max(), r_v.max()))}
+
+
+def phase_direct(torch, sp, dev, ops, side):
+    """V4: splu(S) and spsolve(S, b) (host LU, host substitution) against
+    scipy's spsolve; spsolve_triangular(tril(P), b) in float32 by ``auto``,
+    which takes the device sweeps (one K1 launch a sweep), against scipy's
+    spsolve_triangular."""
+    import scipy.sparse as ssp
+    import scipy.sparse.linalg as sla
+    from spsparse_torch.ops import spmv_dia_stream
+
+    S, _, host = ops["S"]
+    n = S.shape[0]
+    bh = host_f32(17, n)
+    b = torch.from_numpy(bh).to(dev)
+    t0 = time.perf_counter()
+    lu = sp.solvers.splu(S)
+    lu_s = time.perf_counter() - t0
+    x1 = lu.solve(b)
+    x2 = sp.solvers.spsolve(S, b)
+    sync(torch, dev)
+    require(lu._lplan.route() == "host" and lu._uplan.route() == "host",
+            f"splu(S) routes: levels {lu._lplan.nlev}, {lu._uplan.nlev}")
+    ref = sla.spsolve(host.tocsc(), bh.astype(np.float64))
+    err = {}
+    for name, x in (("splu", x1), ("spsolve", x2)):
+        ok, err[name] = close(x.cpu().numpy(), ref, 0.0, 1e-5)
+        require(ok and x.dtype == torch.float32 and x.device == b.device,
+                f"{name} off scipy's spsolve (max abs err {err[name]})")
+    P, _, P_host = ops["P"]
+    L = sp.coo_tril(P)
+    bp = host_f32(18, P.shape[0])
+    before = spmv_dia_stream.launches
+    y = sp.solvers.spsolve_triangular(L, torch.from_numpy(bp).to(dev),
+                                      lower=True)
+    sync(torch, dev)
+    sweeps = spmv_dia_stream.launches - before
+    levels = 2 * side - 1
+    require(dev == "cpu" or sweeps == levels - 1,
+            f"spsolve_triangular ran {sweeps} K1 sweeps, not {levels - 1}")
+    ref_t = sla.spsolve_triangular(ssp.tril(P_host).tocsr(),
+                                   bp.astype(np.float64), lower=True)
+    ok, err["triangular"] = close(y.cpu().numpy(), ref_t, 0.0, 1e-4)
+    require(ok and y.dtype == torch.float32, f"spsolve_triangular off scipy"
+            f" (max abs err {err['triangular']})")
+    return {"lu_s": lu_s, "lu_nnz": lu.nnz, "levels": levels,
+            "sweeps": sweeps, "err": err}
+
+
+def phase_shift_invert(torch, sp, dev, ops):
+    """V5: eigsh(S, k = 6, sigma) by shift-invert through splu against
+    scipy's eigsh(sigma); onenormest of B through a LinearOperator of K1
+    both ways against ||B||_1 from the column sums."""
+    import scipy.sparse.linalg as sla
+
+    S, _, host = ops["S"]
+    vals, vecs = sp.solvers.eigsh(S, k=EIG_K, sigma=SIGMA)
+    sync(torch, dev)
+    got = vals.cpu().numpy()
+    want = np.sort(sla.eigsh(host.tocsc(), k=EIG_K, sigma=SIGMA,
+                             return_eigenvectors=False))
+    require(np.allclose(got, want, rtol=1e-6, atol=0.0),
+            f"eigsh(sigma={SIGMA}) {got.tolist()} vs scipy {want.tolist()}")
+    res = eigen_residuals(host, got, vecs.cpu().numpy())
+    require(bool(np.all(res <= 1e-6)),
+            f"shift-invert residuals {res.tolist()} above 1e-6 |lam|")
+    B, prep, host_b = ops["B"]
+    n = B.shape[0]
+    op = sp.solvers.LinearOperator((n, n), k1(prep), k1(ops["Bt"][1]))
+    est = float(sp.solvers.onenormest(op, device=dev))
+    colsums = np.asarray(abs(host_b).sum(axis=0)).ravel()
+    exact = float(colsums.max())
+    # The estimate is a lower bound attained by a probe: the abs sum of one
+    # of B's columns (float32 products: rtol 1e-5); the default t = 2
+    # probes can stop at a column short of the largest.
+    hit = np.abs(colsums - est) <= 1e-5 * est
+    require(0.5 * exact <= est <= exact * (1 + 1e-5) and bool(hit.any()),
+            f"onenormest {est!r} vs ||B||_1 {exact!r}: not an attained "
+            f"column sum at or below the norm")
+    return {"vals": got.tolist(), "residual": float(res.max()),
+            "onenormest": est, "norm1": exact,
+            "column": int(np.argmax(hit))}
+
+
+def phase_matfuncs(torch, sp, dev, ops, m):
+    """V6: inv and expm of B's leading m x m block against scipy (dense
+    float64: both results are near-dense)."""
+    import scipy.linalg as sl
+
+    B = ops["B"][0]
+    Bs = sp.coo_slice(B, (0, 0), (m, m))
+    dense = Bs.to_dense().cpu().numpy().astype(np.float64)
+    Xi = sp.solvers.inv(Bs)
+    Xe = sp.solvers.expm(Bs)
+    sync(torch, dev)
+    err = {}
+    for name, X, ref in (("inv", Xi, sl.inv(dense)),
+                         ("expm", Xe, sl.expm(dense))):
+        got = X.to_dense().cpu().numpy()
+        ok, err[name] = close(got, ref, 0.0, 1e-4 if name == "expm" else
+                              1e-6)
+        require(ok, f"{name} off scipy (max abs err {err[name]})")
+    return {"m": m, "nnz": {"inv": Xi.nnz, "expm": Xe.nnz}, "err": err}
+
+
+def solver_path(torch, sp, dev, side=POISSON_SIDE, n=N,
+                slice_m=MATFUNC_M) -> dict:
+    """Phases V1-V6 on ``dev``: AMG-preconditioned CG on the Poisson
+    operator, Lanczos/LOBPCG/expm_multiply, least squares and svds, the
+    direct solvers (host LU, the device triangular sweeps), shift-invert
+    eigsh and onenormest, inv and expm. Each f32 product with P, B, B^T or
+    S is kernel K1 (LOBPCG's block products K3). Each phase logs its host
+    wall and the path's peak device memory so far."""
+    from spsparse_torch import native
+
+    require(native.available(), "the native host library did not build")
+    st: dict = {"native": native.available()}
+    t0 = time.perf_counter()
+    ops = solver_operators(torch, sp, dev, side, n)
+    phase_done(torch, dev, f"V0 operators: P {ops['P'][0].nnz} entries "
+               f"({side} x {side} grid), B {ops['B'][0].nnz}, S "
+               f"{ops['S'][0].nnz}; native.available() True", t0, st)
+    t0 = time.perf_counter()
+    amg = phase_amg(torch, sp, dev, ops)
+    phase_done(torch, dev, f"V1 AMG: level sizes {amg['sizes']}, setup "
+               f"{amg['setup_s']!r} s (host aggregation "
+               f"{amg['aggregate_s']} s a level); PCG relative residuals "
+               f"after {SOLVER_ITERS} iterations {amg['residual']}", t0, st)
+    t0 = time.perf_counter()
+    spec = phase_spectral(torch, sp, dev, ops)
+    phase_done(torch, dev, f"V2 spectral: Lanczos top {EIG_K} "
+               f"{spec['vals']}, max residual {spec['residual']!r}; "
+               f"LOBPCG top {spec['lobpcg_top']!r}; expm_multiply err "
+               f"{spec['expm_err']!r}", t0, st)
+    t0 = time.perf_counter()
+    lsq = phase_lstsq(torch, sp, dev, ops)
+    phase_done(torch, dev, f"V3 least squares: normal-equation residuals "
+               f"{lsq['normal_res']} vs scipy lsqr {lsq['scipy_lsqr']!r}; "
+               f"svds {lsq['sigma']}, max residual "
+               f"{lsq['svds_residual']!r}", t0, st)
+    t0 = time.perf_counter()
+    dr = phase_direct(torch, sp, dev, ops, side)
+    phase_done(torch, dev, f"V4 direct: splu(S) {dr['lu_s']!r} s, LU nnz "
+               f"{dr['lu_nnz']}; spsolve_triangular(tril(P)) {dr['levels']}"
+               f" levels, {dr['sweeps']} K1 sweeps; max abs err "
+               f"{dr['err']}", t0, st)
+    t0 = time.perf_counter()
+    si = phase_shift_invert(torch, sp, dev, ops)
+    phase_done(torch, dev, f"V5 shift-invert: eigsh(sigma={SIGMA}) "
+               f"{si['vals']}, max residual {si['residual']!r}; onenormest "
+               f"{si['onenormest']!r} (column {si['column']}) vs ||B||_1 "
+               f"{si['norm1']!r}", t0, st)
+    t0 = time.perf_counter()
+    mf = phase_matfuncs(torch, sp, dev, ops, slice_m)
+    phase_done(torch, dev, f"V6 matfuncs on a {mf['m']}-row slice: nnz "
+               f"{mf['nnz']}, max abs err {mf['err']}", t0, st)
+    st.update(amg=amg, direct=dr)
     return st
 
 
@@ -2742,6 +3147,18 @@ def main() -> int:
         if row["name"] == "spmv_dia_stream":
             row["launches_core_path"] = core_counts["spmv_dia_stream"]
 
+    torch.cuda.reset_peak_memory_stats()
+    solver, solver_counts = run_path(torch, wrappers, solver_path, torch, sp,
+                                     dev)
+    log(f"solver path kernel launches: {solver_counts}; peak device memory "
+        f"{torch.cuda.max_memory_allocated()} bytes")
+    for name in ("spmv_dia_stream", "spmm_dia_mrhs"):
+        require(solver_counts[name] > 0,
+                f"kernel {name} was not launched on the solver path")
+    for row in rows:
+        if row["name"] in ("spmv_dia_stream", "spmm_dia_mrhs"):
+            row["launches_solver_path"] = solver_counts[row["name"]]
+
     for row in rows:
         print(json.dumps({
             "timing": row["name"], "dtype": row["dtype"],
@@ -2774,6 +3191,16 @@ def main() -> int:
                       "bandwidth_scrambled": core["reorder"]["bw_scrambled"],
                       "bandwidth_rcm": core["reorder"]["bw"],
                       "k1_launches": core_counts["spmv_dia_stream"],
+                      "device": card, "nvidia_smi": smi}), flush=True)
+    print(json.dumps({"timing": "solver path, phases V0-V6",
+                      "wall_s": solver["wall_s"],
+                      "peak_bytes": solver["peak_bytes"],
+                      "native_available": solver["native"],
+                      "amg_level_sizes": solver["amg"]["sizes"],
+                      "amg_aggregate_host_s": solver["amg"]["aggregate_s"],
+                      "triangular_sweeps": solver["direct"]["sweeps"],
+                      "k1_launches": solver_counts["spmv_dia_stream"],
+                      "k3_launches": solver_counts["spmm_dia_mrhs"],
                       "device": card, "nvidia_smi": smi}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

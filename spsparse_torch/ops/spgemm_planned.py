@@ -19,10 +19,11 @@ sum to exactly zero stays, with value 0 (unlike
 :func:`spsparse_torch.ops.spgemm.spgemm`, which drops it). Products of a
 cell are in ascending ``(i, k)`` order.
 
-``plan_esc(host=True)`` consolidates the operands on the host in float64
-(this module's copy of the JAX package's numpy consolidate, not an
-import), so a float32 duplicate sum can differ by one ulp from the device
-path, and its consolidated operands come back exact-size.
+``plan_esc(host=True)`` consolidates the operands on the host through
+the native library (:func:`spsparse_torch.native.consolidate_host`, as the
+JAX package does), summing duplicates in float64, so a float32 duplicate
+sum can differ by one ulp from the device path; its consolidated operands
+come back exact-size.
 """
 
 from __future__ import annotations
@@ -61,29 +62,17 @@ class EscPlan:
         return self.ea.shape[0]
 
 
-def _numpy_consolidate(indices: np.ndarray, vals: np.ndarray):
-    """Row-major consolidate(ADD) in float64: drop zeros, lexsort, sum the
-    runs of equal index tuples in order."""
-    keep = vals != 0
-    idx, v = indices[keep], vals[keep]
-    if idx.shape[0] == 0:
-        return idx.reshape(0, indices.shape[1]), v
-    order = np.lexsort(tuple(idx[:, d] for d in reversed(range(idx.shape[1]))))
-    idx, v = idx[order], v[order]
-    starts = np.concatenate([[True], np.any(idx[1:] != idx[:-1], axis=1)])
-    seg = np.cumsum(starts) - 1
-    out_v = np.zeros(int(starts.sum()), v.dtype)
-    np.add.at(out_v, seg, v)
-    return idx[starts], out_v
-
-
 def _consolidate_host_coo(M: SparseCOO) -> SparseCOO:
-    """Row-major host consolidate of ``M``'s live entries (float64 sums),
-    as an exact-size :class:`SparseCOO` on ``M``'s device."""
+    """Row-major host consolidate of ``M``'s live entries through the
+    native library (:func:`spsparse_torch.native.consolidate_host`: float64
+    sums in insertion order, as the JAX package's), as an exact-size
+    :class:`SparseCOO` on ``M``'s device."""
+    from .. import native
+
     n = M.nnz
-    idx = M.indices[:n].cpu().numpy().astype(np.int64)
+    idx = M.indices[:n].cpu().numpy()
     vals = M.vals[:n].cpu().to(torch.float64).numpy()
-    out_idx, out_vals = _numpy_consolidate(idx, vals)
+    out_idx, out_vals = native.consolidate_host(idx, vals, M.shape, (0, 1))
     return SparseCOO(
         indices=torch.from_numpy(out_idx).to(M.device, M.index_dtype),
         vals=torch.from_numpy(out_vals).to(M.device, M.dtype),
@@ -97,7 +86,7 @@ def plan_esc(A: SparseCOO, B: SparseCOO, *, transpose_a: bool = False,
     the plan's gather maps index; one plan serves any number of value
     updates with the same pattern. The plan lives on ``A``'s device.
 
-    ``host=True`` consolidates on the host (numpy, float64 sums) instead of
+    ``host=True`` consolidates on the host (native, float64 sums) instead of
     the operands' device; the pattern is the same, and ``acon``/``bcon``
     are exact-size rather than padded to a power of two."""
     if A.rank != 2 or B.rank != 2:
