@@ -20,7 +20,13 @@ so the script exits non-zero and prints no result line):
 4. ``to_dia`` + ``prepare_dia`` (float32 and bfloat16) + ``best_spmv``:
    kernel K1 against its plain PyTorch version on the card; a float64
    ``SparseDIA`` through ``best_spmv`` (plain PyTorch in float64, the JAX
-   package's route) against scipy float64.
+   package's route) against scipy float64. Then K1 on n + 3 rows (its
+   single-element path) and on data at an odd storage offset, in float32
+   and bfloat16, with m = n/2 and n = m/2, offsets beyond +-m, the
+   Poisson offsets (0, +-1, +-1024), 128 diagonals and n = 100: each
+   against its plain version, bit for bit on a second call, and the launch
+   the library reports (``sps_dia_spmv_geometry``) equal to the host
+   replay's (``dia_spmv_geometry``).
 5. ``spmv_dia_chain`` (64 iterations, scale 0.3): kernel K2 against its
    plain version on the card.
 6. NetCDF round trip of the phase-3 product: exact ``to_lists()`` equality.
@@ -111,7 +117,12 @@ columns a row, values uniform(-1, 1), x uniform(-1, 1), all from
     ``ell_k`` 16: split rows).
 23. K10: ``segmented_row_sums`` on the CSR products against its plain
     version, ``spmv_csr_segsum`` against scipy, and K10 on a skewed row
-    pointer (empty rows, one row of 4096).
+    pointer (empty rows, one row of 4096); then on 70% empty rows, a row
+    of 20,000 entries across several CTAs, rp[0] = 4099, nnz = 0 and
+    nrows = 0, entries outside the range NaN, against float64 sums, bit
+    for bit on a second call, the launch the library reports
+    (``sps_segsum_geometry``) equal to the host replay's
+    (``segsum_geometry``).
 24. K12: ``sort_blocks`` on (1024, 64, 128) int32 keys with a float32
     payload, two keys, R = 1, (8, 256, 128) with three arrays (past the
     shared-memory chunk), float32 keys (with ties, -0.0 and infinities) and
@@ -203,7 +214,10 @@ V6. ``inv`` and ``expm`` of B's leading 2048 x 2048 block against scipy's
     their kernels. K8, K9 and K13 carry two bounds: the dense one
     (every tile product whole) and the occupied one (``bound_ms``: only
     the (warp block, k-chunk) units whose two sides hold a nonzero, which
-    is the work the kernels cannot skip).
+    is the work the kernels cannot skip). K1 (config 2 in float32 and
+    bfloat16, and float32 on phase 4's operand with the Poisson offsets),
+    K2 and K10 also carry their device time (``torch.profiler``) and the
+    host's issue time a call (bursts of calls not waited for).
 
 The core path and the solver path run after phase 25, so that their host
 work cannot reach the kernels' times. The launch counters of the kernel
@@ -481,7 +495,72 @@ def phase_dia(torch, sp, dev, A, vals):
         y64.cpu().numpy(), scipy_banded(n) @ x.cpu().numpy().astype(
             np.float64), 1e-12, 1e-12)
     require(ok, f"float64 DIA best_spmv off scipy ({out['err']['f64']})")
+    (out["shape_err"], out["geometry"], out["P"],
+     out["P_x"]) = k1_shapes(torch, dev, n)
     return out
+
+
+def k1_shapes(torch, dev, n):
+    """Phase 4's further K1 shapes through ``spmv_dia_stream``, random
+    values in every slot (those outside [0, m) must not count): n + 3 rows
+    (the single-element path) and data at an odd storage offset, each in
+    float32 and bfloat16; m = n/2 and n = m/2 with a far diagonal; offsets
+    beyond +-m; the Poisson operator's offsets (0, +-1, +-sqrt(n)); 128
+    diagonals on n/4 rows; n = 100. Each against the plain version (rtol
+    1e-5, atol 1e-5 of max|ref|), the same bits from a second call, and on
+    the card the launch the library reports equal to the host replay's.
+    Returns ``({shape: max abs err}, {shape: geometry}, P's operand, x)``;
+    the launches are not counted as the path's."""
+    from spsparse_torch.ops import (PreparedDIA, spmv_dia_stream,
+                                    spmv_dia_stream_reference)
+
+    rng = np.random.default_rng(13)
+    side = int(round(n ** 0.5))
+    band = tuple(range(-BAND, BAND + 1))
+
+    def operand(rows, cols, offsets, dtype=torch.float32, at=0):
+        K = len(offsets)
+        store = torch.empty(at + K * rows, dtype=dtype, device=dev)
+        store[at:] = torch.from_numpy(rng.uniform(-1, 1, K * rows).astype(
+            np.float32)).to(dev).to(dtype)
+        return PreparedDIA(data=store[at:].view(K, rows),
+                           offsets=tuple(offsets), shape=(rows, cols))
+
+    shapes = {
+        "n + 3, f32": operand(n + 3, n + 3, band),
+        "n + 3, bf16": operand(n + 3, n + 3, band, torch.bfloat16),
+        "odd storage offset, f32": operand(n, n, band, at=1),
+        "odd storage offset, bf16": operand(n, n, band, torch.bfloat16, 1),
+        "m = n/2": operand(n, n // 2, band + (n // 4,)),
+        "n = m/2": operand(n // 2, n, band + (n // 4,)),
+        "offsets beyond +-m": operand(n, n, (-n - 3,) + band + (n + 2,)),
+        "P's offsets": operand(n, n, (-side, -1, 0, 1, side)),
+        "128 diagonals": operand(n // 4, n // 4, range(-64, 64)),
+        "n = 100": operand(100, 100, band),
+    }
+    before = spmv_dia_stream.launches
+    errs, geos = {}, {}
+    for what, prep in shapes.items():
+        x = torch.from_numpy(rng.uniform(-1, 1, prep.shape[1]).astype(
+            np.float32)).to(dev)
+        y = spmv_dia_stream(prep, x)
+        y2 = spmv_dia_stream(prep, x)
+        ref = spmv_dia_stream_reference(prep, x)
+        sync(torch, dev)
+        ok, errs[what] = close(y.cpu().numpy(), ref.cpu().numpy(), 1e-5,
+                               1e-5)
+        require(ok, f"K1 {what} off its plain version ({errs[what]})")
+        require(bitwise_equal(torch, y, y2),
+                f"K1 {what}: a second call gave other bits")
+        if torch.device(dev).type == "cuda":
+            geos[what] = k1_geometry(prep, y)
+            require(geos[what] == k1_replay(prep, y),
+                    f"K1 {what}: the library's launch {geos[what]} is not "
+                    f"dia_spmv_geometry's {k1_replay(prep, y)}")
+        if what == "P's offsets":
+            p_x = x
+    spmv_dia_stream.launches = before
+    return errs, geos, shapes["P's offsets"], p_x
 
 
 def phase_chain(torch, dev, prep, x):
@@ -526,7 +605,9 @@ def main_path(torch, sp, dev, n=N, mm_n=MM_N) -> dict:
         f"({time.perf_counter() - t0:.3f} s)")
     t0 = time.perf_counter()
     dia = phase_dia(torch, sp, dev, ing["A"], ing["vals"])
-    log(f"phase 4 DIA SpMV: K1 max abs err {dia['err']} "
+    log(f"phase 4 DIA SpMV: K1 max abs err {dia['err']}; shapes "
+        f"{dia['shape_err']}, bit for bit on a second call, launches "
+        f"{dia['geometry']} equal to dia_spmv_geometry's "
         f"({time.perf_counter() - t0:.3f} s)")
     t0 = time.perf_counter()
     chain_err = phase_chain(torch, dev, dia["f32"], dia["x"])
@@ -1597,7 +1678,59 @@ def phase_segsum(torch, sp, dev, c2):
     want[counts == 0] = 0.0
     ok, err["skewed"] = close(ys.cpu().numpy(), want, 1e-5, 1e-5)
     require(ok, f"K10 on the skewed row pointer ({err['skewed']})")
-    return {"csr": csr, "prod": prod, "err": err}
+    err["shapes"], geometry = k10_shapes(torch, dev)
+    return {"csr": csr, "prod": prod, "err": err, "geometry": geometry}
+
+
+def k10_shapes(torch, dev):
+    """Phase 23's further K10 shapes: 70% empty rows, a row of 20,000
+    entries across several CTAs, rp[0] = 4099 (the head not 16-byte
+    aligned), nnz = 0, nrows = 0; entries outside [rp[0], rp[nrows]) NaN,
+    so that reading one shows. Each against float64 row sums (rtol 1e-5,
+    atol 1e-5 of max|ref|), the same bits from a second call, and on the
+    card the launch the library reports equal to the host replay's.
+    Returns ``({shape: max abs err}, {shape: geometry})``; the launches are
+    not counted as the path's."""
+    from spsparse_torch.ops import segmented_row_sums
+
+    rng = np.random.default_rng(12)
+    cases = {
+        "empty rows": (rng.integers(0, 3, 20000)
+                       * (rng.random(20000) < 0.3), 0),
+        "a row of 20000": (np.where(np.arange(3000) == 1000, 20000,
+                                    rng.integers(0, 12, 3000)), 0),
+        "rp[0] = 4099": (rng.integers(0, 30, 5000), 4099),
+        "nnz = 0": (np.zeros(777, np.int64), 0),
+        "nrows = 0": (np.zeros(0, np.int64), 0),
+    }
+    before = segmented_row_sums.launches
+    errs, geos = {}, {}
+    for what, (counts, head) in cases.items():
+        rp = head + np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+        ph = np.full(int(rp[-1]) + 5, np.nan, np.float32)
+        ph[head:rp[-1]] = rng.uniform(-1, 1, int(rp[-1]) - head)
+        prod = torch.from_numpy(ph).to(dev)
+        rpt = torch.from_numpy(rp.astype(np.int32)).to(dev)
+        kw = dict(nrows=counts.size, rows_per_block=8, entries_per_block=128)
+        y = segmented_row_sums(prod, rpt, **kw)
+        y2 = segmented_row_sums(prod, rpt, **kw)
+        sync(torch, dev)
+        want = np.zeros(counts.size)
+        if counts.size:
+            np.add.at(want, np.repeat(np.arange(counts.size), counts),
+                      ph[head:rp[-1]].astype(np.float64))
+        ok, errs[what] = close(y.cpu().numpy(), want, 1e-5, 1e-5)
+        require(ok and y.shape == (counts.size,),
+                f"K10 {what} off the float64 sums ({errs[what]})")
+        require(bitwise_equal(torch, y, y2),
+                f"K10 {what}: a second call gave other bits")
+        if torch.device(dev).type == "cuda":
+            lib, replay = k10_geometry(prod, counts.size)
+            require(lib == replay, f"K10 {what}: the library's launch {lib} "
+                    f"is not segsum_geometry's {replay}")
+            geos[what] = lib
+    segmented_row_sums.launches = before
+    return errs, geos
 
 
 def same_up_to_ties(torch, got, ref, num_keys: int, what: str) -> None:
@@ -1716,8 +1849,9 @@ def unstructured_path(torch, sp, dev, n=N, heavy_n=HEAVY_N,
         f"({time.perf_counter() - t0:.3f} s)")
     t0 = time.perf_counter()
     seg = phase_segsum(torch, sp, dev, c2)
-    log(f"phase 23 K10: max abs err {seg['err']} "
-        f"({time.perf_counter() - t0:.3f} s)")
+    log(f"phase 23 K10: max abs err {seg['err']} (shapes bit for bit on "
+        f"a second call, launches {seg['geometry']} equal to "
+        f"segsum_geometry's) ({time.perf_counter() - t0:.3f} s)")
     t0 = time.perf_counter()
     srt = phase_sort(torch, dev, sort_nblk)
     log(f"phase 24 K12: {srt['cases']}, stable packed and not: keys exact, "
@@ -2404,6 +2538,42 @@ def time_ms(torch, fn, *, reps: int = 15, inner: int = 10,
     return out
 
 
+def host_issue_us(torch, fn, *, calls: int = 100, bursts: int = 15) -> float:
+    """Median host microseconds a call of ``fn`` takes to issue: bursts of
+    ``calls`` calls on the host clock, not waited for, each after a
+    synchronise (so that no backlog of earlier launches holds the host)."""
+    fn()
+    out = []
+    for _ in range(bursts):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        out.append((time.perf_counter() - t0) / calls * 1e6)
+    torch.cuda.synchronize()
+    return float(np.median(out))
+
+
+def device_ms(torch, fn, calls: int = 10) -> float:
+    """Device milliseconds a call of ``fn``: the CUDA kernels' time under
+    ``torch.profiler`` over ``calls`` calls (``tests_gpu/profile_kernels.py``'s
+    method)."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = 0.0
+    for e in prof.key_averages():
+        if "CUDA" in str(getattr(e, "device_type", "")):
+            t = getattr(e, "device_time_total", None)
+            us += e.cuda_time_total if t is None else t
+    return us / calls / 1e3
+
+
 def compare_times(torch, kernel, plain, **kw) -> tuple[float, float]:
     """Median ms of the kernel and of the plain version, timed in turns
     (plain, kernel, kernel, plain)."""
@@ -2466,6 +2636,49 @@ def k12_geometry(n: int, n_arrays: int, num_keys: int) -> tuple:
         n_arrays, num_keys, n, ctypes.cast(out, ctypes.c_void_p)),
         "sps_block_sort_geometry")
     return tuple(int(v) for v in out)
+
+
+def k1_geometry(prep, y) -> tuple:
+    """K1's launch for ``prep`` writing ``y``, as the library reports it
+    (``sps_dia_spmv_geometry``): what the host replay's
+    ``dia_spmv_geometry`` must equal."""
+    import ctypes
+
+    from spsparse_torch import backend
+
+    op = prep.launch
+    out = (ctypes.c_longlong * 4)()
+    backend.check(backend.load_kernels().sps_dia_spmv_geometry(
+        op.code, op.ld, op.n, op.K, op.offsets_ptr,
+        prep.data.data_ptr(), y.data_ptr(),
+        ctypes.cast(out, ctypes.c_void_p)), "sps_dia_spmv_geometry")
+    return tuple(int(v) for v in out)
+
+
+def k1_replay(prep, y) -> tuple:
+    """``dia_spmv_geometry`` of ``prep`` writing ``y``, as a plain tuple."""
+    from spsparse_torch.ops.dia_stream import dia_spmv_geometry
+
+    return tuple(int(v) for v in dia_spmv_geometry(
+        prep.data.dtype, prep.launch.ld, prep.shape[0], prep.data.data_ptr(),
+        y.data_ptr()))
+
+
+def k10_geometry(prod, nrows: int) -> tuple:
+    """K10's launch for ``prod`` and ``nrows`` rows as the library reports
+    it (``sps_segsum_geometry``) and as ``segsum_geometry`` replays it."""
+    import ctypes
+
+    from spsparse_torch import backend
+    from spsparse_torch.ops.segsum import segsum_geometry
+
+    out = (ctypes.c_longlong * 5)()
+    backend.check(backend.load_kernels().sps_segsum_geometry(
+        prod.shape[0], nrows, prod.data_ptr(),
+        ctypes.cast(out, ctypes.c_void_p)), "sps_segsum_geometry")
+    return (tuple(int(v) for v in out),
+            tuple(int(v) for v in segsum_geometry(prod.shape[0], nrows,
+                                                  prod.data_ptr())))
 
 
 def bitwise_equal(torch, got, want) -> bool:
@@ -2836,10 +3049,13 @@ def unstructured_timings(torch, un, launches: dict) -> tuple[list, dict]:
                          library_ms=lib, matrix=matrix, **extra))
 
     prod, csr = seg["prod"], seg["csr"]
+
+    def k10():
+        return segmented_row_sums(prod, csr.row_ptr, nrows=n,
+                                  rows_per_block=256, entries_per_block=1024)
+
     ms, plain_ms = compare_times(
-        torch, lambda: segmented_row_sums(prod, csr.row_ptr, nrows=n,
-                                          rows_per_block=256,
-                                          entries_per_block=1024),
+        torch, k10,
         lambda: segmented_row_sums_reference(prod, csr.row_ptr, n))
     # One PyTorch call computing K10's function: per-row sums of the
     # products by the row pointer.
@@ -2855,7 +3071,13 @@ def unstructured_timings(torch, un, launches: dict) -> tuple[list, dict]:
     row("segmented_row_sums", "config 2c (CSR products)", ms, plain_ms,
         4 * csr.nnz + 4 * (n + 1) + 4 * n, csr.nnz, seg["err"]["k10"],
         seg_lib_ms, n=n, nnz=csr.nnz, library_call="torch.segment_reduce",
-        library_csr_spmv_ms=lib_ms)
+        library_csr_spmv_ms=lib_ms, device_ms=device_ms(torch, k10),
+        host_issue_us=host_issue_us(torch, k10),
+        # The same sums over the live prefix of prod (no tiles past nnz),
+        # as spmv_csr_segsum hands it to K10.
+        device_ms_live=device_ms(torch, lambda: segmented_row_sums(
+            prod[:csr.nnz], csr.row_ptr, nrows=n, rows_per_block=256,
+            entries_per_block=1024)))
     ms, plain_ms = compare_times(torch, lambda: shuffle_gather(prep, x),
                                  lambda: shuffle_gather_reference(prep, x),
                                  reps=7, inner=5)
@@ -2905,6 +3127,24 @@ def unstructured_timings(torch, un, launches: dict) -> tuple[list, dict]:
                 "library csr @ x ms"):
         ends[key.replace(" ms", " Gnnz/s")] = nnz / ends[key] / 1e6
     return rows, ends
+
+
+def dia_host(prep):
+    """scipy CSR (float64) of a prepared DIA operand's in-range slots: the
+    library yardstick's matrix."""
+    import scipy.sparse as ssp
+
+    n, m = prep.shape
+    data = prep.data.float().cpu().numpy().astype(np.float64)
+    rows, cols, vals = [], [], []
+    for k, off in enumerate(prep.offsets):
+        i = np.arange(max(0, -off), max(max(0, -off), min(n, m - off)))
+        rows.append(i)
+        cols.append(i + off)
+        vals.append(data[k, i])
+    return ssp.csr_matrix((np.concatenate(vals), (np.concatenate(rows),
+                                                  np.concatenate(cols))),
+                          shape=(n, m))
 
 
 def library_csr(torch, n, dev):
@@ -3071,29 +3311,52 @@ def main() -> int:
     spmv_lib = float(np.median(time_ms(torch, lambda: A_csr @ x)))
     mrhs_lib = float(np.median(time_ms(torch, lambda: A_csr @ X.T)))
     rows = []
-    for dname, item in (("f32", 4), ("bf16", 2)):
-        prep = dia[dname]
+    # K1 on config 2's band (f32, bf16) and on phase 4's operand with the
+    # solver path's Poisson offsets (f32): events a call in turns with the
+    # plain version ("ms"), the device time a call (torch.profiler) and the
+    # host's issue time a call (bursts of calls not waited for).
+    P, P_x = dia["P"], dia["P_x"]
+    p_nnz = sum(N - abs(o) for o in P.offsets)
+    p_lib = torch_csr(torch, dia_host(P), dev)
+    k1_cases = (("f32", 4, dia["f32"], x, nnz, spmv_lib, dia["err"]["f32"],
+                 "banded", {}),
+                ("bf16", 2, dia["bf16"], x, nnz, spmv_lib,
+                 dia["err"]["bf16"], "banded", {}),
+                ("f32", 4, P, P_x, p_nnz, float(np.median(time_ms(
+                    torch, lambda: p_lib @ P_x))),
+                 dia["shape_err"]["P's offsets"],
+                 "P's offsets (0, +-1, +-1024)", dict(nnz=p_nnz)))
+    for dname, item, prep, xv, nz, lib_ms, err, matrix, extra in k1_cases:
+        def call(prep=prep, xv=xv):
+            return spmv_dia_stream(prep, xv)
+
         ms, plain_ms = compare_times(
-            torch, lambda: spmv_dia_stream(prep, x),
-            lambda: spmv_dia_stream_reference(prep, x))
-        b_ms, b_by = bound_ms(nnz * item + 8 * N, 2 * nnz)
+            torch, call, lambda: spmv_dia_stream_reference(prep, xv))
+        b_ms, b_by = bound_ms(nz * item + 8 * N, 2 * nz)
         rows.append(dict(name="spmv_dia_stream", dtype=dname,
                          **KERNELS["spmv_dia_stream"],
                          launches=launches["spmv_dia_stream"],
-                         max_abs_err=dia["err"][dname], ms=ms,
+                         max_abs_err=err, ms=ms,
+                         device_ms=device_ms(torch, call),
+                         host_issue_us=host_issue_us(torch, call),
                          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                         library_ms=spmv_lib))
+                         library_ms=lib_ms, matrix=matrix, **extra))
     prep = dia["f32"]
+    chain = (lambda: spmv_dia_chain(prep, x, CHAIN_ITERS, CHAIN_SCALE))
     ms, plain_ms = compare_times(
-        torch, lambda: spmv_dia_chain(prep, x, CHAIN_ITERS, CHAIN_SCALE),
+        torch, chain,
         lambda: spmv_dia_chain_reference(prep, x, CHAIN_ITERS, CHAIN_SCALE))
     b_ms, b_by = bound_ms((CHAIN_ITERS * nnz * 4 + 8 * N) / CHAIN_ITERS,
                           2 * nnz)
-    # Per iteration; the library yardstick is one SpMV, one iteration.
+    # Per iteration; the library yardstick is one SpMV, one iteration. The
+    # host issues one call (64 launches) a chain.
     rows.append(dict(name="spmv_dia_chain", dtype="f32",
                      **KERNELS["spmv_dia_chain"],
                      launches=launches["spmv_dia_chain"],
                      max_abs_err=state["chain_err"], ms=ms / CHAIN_ITERS,
+                     device_ms=device_ms(torch, chain) / CHAIN_ITERS,
+                     host_issue_us=host_issue_us(torch, chain, calls=10,
+                                                 bursts=7),
                      plain_ms=plain_ms / CHAIN_ITERS, bound_ms=b_ms,
                      bound_by=b_by, library_ms=spmv_lib))
     for dname, item in (("f32", 4), ("bf16", 2)):
@@ -3166,6 +3429,9 @@ def main() -> int:
             "nnz": row.get("nnz", nnz), "ms": row["ms"],
             "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "library_ms": row["library_ms"],
+            "device_ms": row.get("device_ms"),
+            "device_ms_live": row.get("device_ms_live"),
+            "host_issue_us": row.get("host_issue_us"),
             "prior_design_ms": row.get("prior_design_ms"),
             "geometry": row.get("geometry"), "note": row.get("note"),
             "k9_ms": row.get("k9_ms"),

@@ -37,7 +37,8 @@ from pathlib import Path
 import torch
 
 __all__ = ["CSRC_DIR", "KERNEL_DIR", "NVCC_FLAGS", "find_nvcc", "build",
-           "load_kernels", "check", "device_report"]
+           "load_kernels", "check", "current_stream", "current_stream_of",
+           "device_report"]
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 KERNEL_DIR = Path(__file__).resolve().parent / "_kernels"
@@ -55,6 +56,7 @@ _F = ctypes.c_float
 # ctypes never truncates a 64-bit address to a 32-bit int.
 _SIGNATURES = {
     "sps_dia_spmv": [_I, _P, _LL, _LL, _LL, _I, _P, _P, _P, _F, _P],
+    "sps_dia_spmv_geometry": [_I, _LL, _LL, _I, _P, _P, _P, _P],
     "sps_dia_chain": [_I, _P, _LL, _LL, _I, _P, _P, _P, _I, _F, _P],
     "sps_dia_max_diags": [],
     "sps_dia_mrhs": [_I, _P, _LL, _LL, _LL, _I, _P, _I, _P, _LL, _P, _LL,
@@ -71,7 +73,8 @@ _SIGNATURES = {
     "sps_spgemm_pairs_stream": [_I, _I, _P, _P, _P, _P, _P, _I, _P, _P],
     "sps_spgemm_window": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                           _P, _P],
-    "sps_segsum": [_P, _P, _LL, _I, _P, _P],
+    "sps_segsum": [_P, _LL, _P, _LL, _P, _P, _LL, ctypes.c_uint, _P],
+    "sps_segsum_geometry": [_LL, _LL, _P, _P],
     "sps_shuffle_gather": [_I, _P, _P, _P, _LL, _LL, _P, _P],
     "sps_shuffle_gather_scatter": [_I, _P, _P, _P, _P, _P, _LL, _LL, _P, _LL,
                                    _LL, _P, _P],
@@ -181,7 +184,16 @@ def _error_string(err: int) -> str:
 
 def current_stream(device: torch.device) -> int:
     """PyTorch's current CUDA stream handle on ``device`` (a Python int)."""
-    return torch.cuda.current_stream(device).cuda_stream
+    device = torch.device(device)
+    return current_stream_of(torch.cuda.current_device()
+                             if device.index is None else device.index)
+
+
+def current_stream_of(index: int) -> int:
+    """PyTorch's current CUDA stream handle on the card ``index``: the raw
+    handle, without the ``torch.cuda.Stream`` object that
+    ``torch.cuda.current_stream`` builds on every call."""
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def device_report() -> dict:

@@ -19,13 +19,11 @@ the Hopper kernel bounds-checks columns, so the limit is lifted.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from .. import backend
-from .dia_stream import (PreparedDIA, check_operands, launch_args,
-                         prepare_dia, spmv_dia_stream_reference)
+from .dia_stream import (PreparedDIA, check_operands, prepare_dia,
+                         spmv_dia_stream_reference)
 
 __all__ = ["spmv_dia_chain", "spmv_dia_chain_reference"]
 
@@ -62,13 +60,11 @@ def spmv_dia_chain(dia, x: Tensor, iters: int, scale: float = 1.0) -> Tensor:
     buf_b = torch.empty_like(buf_a)
     if iters == 0 or n == 0:
         return buf_a
-    lib = backend.load_kernels()
-    code, offs = launch_args(prep)
-    err = lib.sps_dia_chain(
-        code, prep.data.data_ptr(), prep.data.stride(0), n,
-        len(prep.offsets), ctypes.cast(offs, ctypes.c_void_p),
+    op = prep.launch
+    err = backend.load_kernels().sps_dia_chain(
+        op.code, prep.data.data_ptr(), op.ld, n, op.K, op.offsets_ptr,
         buf_a.data_ptr(), buf_b.data_ptr(), iters, float(scale),
-        backend.current_stream(x.device))
+        backend.current_stream_of(op.device_index))
     backend.check(err, "sps_dia_chain")
     spmv_dia_chain.launches += 1
     return buf_a if iters % 2 == 0 else buf_b

@@ -35,6 +35,8 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -42,14 +44,35 @@ from .. import backend
 from ..core.dia import SparseDIA
 
 __all__ = ["PreparedDIA", "prepare_dia", "spmv_dia_stream",
-           "spmv_dia_stream_reference", "DiaSpmmFunction", "MAX_DIAGS"]
+           "spmv_dia_stream_reference", "DiaSpmmFunction", "MAX_DIAGS",
+           "dia_spmv_geometry", "DiaSpmvGeometry"]
 
 Tensor = torch.Tensor
 
 # Must equal SPS_MAX_DIAGS in csrc/dia.cu (the kernel-parameter struct).
 MAX_DIAGS = 128
+# Must equal kThreads and Rows<T>::V in csrc/dia.cu.
+_THREADS = 256
+_ROWS_PER_THREAD = {torch.float32: 4, torch.bfloat16: 8}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+class _Launch(NamedTuple):
+    """What a K1, K2, K3 or K4 launch needs of a checked operand and never
+    changes: the dtype code, the offsets as a C array (and its address),
+    the shape, the row stride of ``data``, and the device."""
+
+    code: int
+    offsets: ctypes.Array
+    offsets_ptr: int
+    K: int
+    n: int
+    m: int
+    ld: int
+    device: torch.device
+    is_cuda: bool
+    device_index: int
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,6 +89,31 @@ class PreparedDIA:
     def device(self) -> torch.device:
         return self.data.device
 
+    @functools.cached_property
+    def launch(self) -> _Launch:
+        """The operand checked once and its launch arguments (raises on an
+        operand the kernels do not take)."""
+        n, m = self.shape
+        K = len(self.offsets)
+        data = self.data
+        if data.dtype not in _DTYPE_CODE:
+            raise TypeError(f"DIA data must be float32 or bfloat16, got "
+                            f"{data.dtype}")
+        if tuple(data.shape) != (K, n):
+            raise ValueError(f"DIA data must have shape {(K, n)}, got "
+                             f"{tuple(data.shape)}")
+        if not data.is_contiguous():
+            raise ValueError("DIA data must be contiguous")
+        if K > MAX_DIAGS:
+            raise ValueError(f"DIA kernels take at most {MAX_DIAGS} "
+                             f"diagonals, got {K}")
+        if data.device.type not in ("cpu", "cuda"):
+            raise ValueError(f"unsupported device {data.device}")
+        offs = (ctypes.c_int * max(K, 1))(*self.offsets)
+        return _Launch(_DTYPE_CODE[data.dtype], offs, ctypes.addressof(offs),
+                       K, n, m, data.stride(0), data.device, data.is_cuda,
+                       data.get_device())
+
 
 def prepare_dia(dia: SparseDIA, *, dtype=torch.float32) -> PreparedDIA:
     """Cast the diagonals to ``dtype`` (float32 or bfloat16). bfloat16
@@ -79,32 +127,20 @@ def prepare_dia(dia: SparseDIA, *, dtype=torch.float32) -> PreparedDIA:
 
 
 def check_operands(prep: PreparedDIA, x: Tensor) -> Tensor:
-    """Validate a prepared operand and ``x``; return ``x`` as contiguous
-    float32 on the operand's device (no device move)."""
-    n, m = prep.shape
-    K = len(prep.offsets)
-    data = prep.data
-    if data.dtype not in _DTYPE_CODE:
-        raise TypeError(f"DIA data must be float32 or bfloat16, got "
-                        f"{data.dtype}")
-    if tuple(data.shape) != (K, n):
-        raise ValueError(f"DIA data must have shape {(K, n)}, got "
-                         f"{tuple(data.shape)}")
-    if not data.is_contiguous():
-        raise ValueError("DIA data must be contiguous")
-    if K > MAX_DIAGS:
-        raise ValueError(f"DIA kernels take at most {MAX_DIAGS} diagonals, "
-                         f"got {K}")
-    if not isinstance(x, Tensor) or x.ndim != 1 or x.shape[0] != m:
-        raise ValueError(f"x must be a 1-D tensor of length {m}")
-    if not x.dtype.is_floating_point:
-        raise TypeError(f"x must be floating point, got {x.dtype}")
-    if x.device != data.device:
+    """Validate a prepared operand (once: :attr:`PreparedDIA.launch`) and
+    ``x``; return ``x`` as contiguous float32 on the operand's device (no
+    device move; no copy when it is one already)."""
+    op = prep.launch
+    if not isinstance(x, Tensor) or x.ndim != 1 or x.shape[0] != op.m:
+        raise ValueError(f"x must be a 1-D tensor of length {op.m}")
+    if x.is_cuda != op.is_cuda or x.get_device() != op.device_index:
         raise ValueError(f"x is on {x.device} but the operand is on "
-                         f"{data.device}")
-    if data.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {data.device}")
-    return x.to(torch.float32).contiguous()
+                         f"{op.device}")
+    if x.dtype is not torch.float32:
+        if not x.dtype.is_floating_point:
+            raise TypeError(f"x must be floating point, got {x.dtype}")
+        x = x.to(torch.float32)
+    return x if x.is_contiguous() else x.contiguous()
 
 
 def spmv_dia_stream_reference(prep: PreparedDIA, x: Tensor) -> Tensor:
@@ -120,26 +156,50 @@ def spmv_dia_stream_reference(prep: PreparedDIA, x: Tensor) -> Tensor:
 
 
 def launch_args(prep: PreparedDIA):
-    """``(dtype code, offsets as a C int array)`` for the C entry points."""
-    offs = (ctypes.c_int * max(len(prep.offsets), 1))(*prep.offsets)
-    return _DTYPE_CODE[prep.data.dtype], offs
+    """``(dtype code, offsets as a C int array)`` for the C entry points
+    (made once per operand)."""
+    op = prep.launch
+    return op.code, op.offsets
+
+
+class DiaSpmvGeometry(NamedTuple):
+    """K1's launch (``sps_dia_spmv_geometry``): rows a thread, threads a
+    CTA, CTAs, 16-byte loads (or one load an element)."""
+
+    rows: int
+    threads: int
+    ctas: int
+    vector: bool
+
+
+def dia_spmv_geometry(dtype, ld: int, n: int, data_ptr: int,
+                      y_ptr: int) -> DiaSpmvGeometry:
+    """Host replay of ``sps_dia_spmv_geometry`` (csrc/dia.cu) for ``data``
+    of ``dtype`` (float32 or bfloat16) with row stride ``ld`` and ``n``
+    rows, at the addresses ``data_ptr`` and ``y_ptr``: V rows a thread, 4
+    (f32) or 8 (bf16), 16 bytes of a diagonal; 256 threads, 256 V rows a
+    CTA; the 16-byte path when ``ld`` and ``n`` are multiples of V and data
+    and y are 16-byte aligned."""
+    V = _ROWS_PER_THREAD[dtype]
+    vector = (ld % V == 0 and n % V == 0 and data_ptr % 16 == 0
+              and y_ptr % 16 == 0)
+    return DiaSpmvGeometry(V, _THREADS, -(-n // (_THREADS * V)), vector)
 
 
 def _spmv(prep: PreparedDIA, x: Tensor) -> Tensor:
     """K1 on a CUDA ``x``, its plain version on a CPU ``x``."""
-    if x.device.type == "cpu":
+    op = prep.launch
+    if not op.is_cuda:
         return spmv_dia_stream_reference(prep, x)
-    n, m = prep.shape
-    y = torch.empty(n, dtype=torch.float32, device=x.device)
-    if n == 0:
+    y = torch.empty(op.n, dtype=torch.float32, device=op.device)
+    if op.n == 0:
         return y
-    lib = backend.load_kernels()
-    code, offs = launch_args(prep)
-    err = lib.sps_dia_spmv(
-        code, prep.data.data_ptr(), prep.data.stride(0), n, m,
-        len(prep.offsets), ctypes.cast(offs, ctypes.c_void_p),
-        x.data_ptr(), y.data_ptr(), 1.0, backend.current_stream(x.device))
-    backend.check(err, "sps_dia_spmv")
+    err = backend.load_kernels().sps_dia_spmv(
+        op.code, prep.data.data_ptr(), op.ld, op.n, op.m, op.K,
+        op.offsets_ptr, x.data_ptr(), y.data_ptr(), 1.0,
+        backend.current_stream_of(op.device_index))
+    if err:
+        backend.check(err, "sps_dia_spmv")
     spmv_dia_stream.launches += 1
     return y
 

@@ -7,8 +7,10 @@ per-entry products in row-pointer order it returns the per-row totals
     y[r] = sum_{e in [row_ptr[r], row_ptr[r+1])} prod[e]      (float32)
 
 On CUDA tensors :func:`segmented_row_sums` launches ``sps_segsum``
-(``spsparse_torch/csrc/segsum.cu``: a group of lanes per row, a shuffle
-reduction); on CPU tensors it runs the plain version
+(``spsparse_torch/csrc/segsum.cu``: a fixed range of entries a CTA, row
+segments reduced by a segmented scan, rows that cross CTAs completed from
+the earlier CTAs' carries; :func:`segsum_geometry` replays its launch); on
+CPU tensors it runs the plain version
 :func:`segmented_row_sums_reference` (an ``index_add_`` over the entries'
 row ids). The TPU kernel reduced ``rows_per_block`` rows at a time over a
 DMA window of ``entries_per_block`` entries; both only sized that window.
@@ -24,6 +26,8 @@ does in XLA, and reduces the products with K10.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -34,9 +38,52 @@ from .spmm import _gather_rows
 
 __all__ = ["segmented_row_sums", "segmented_row_sums_reference",
            "csr_products", "spmv_csr_segsum", "pad_products",
-           "max_entries_per_rowblock"]
+           "max_entries_per_rowblock", "segsum_geometry", "SegsumGeometry"]
 
 Tensor = torch.Tensor
+
+# Must equal kItems and kThreads in csrc/segsum.cu.
+_ITEMS = 16
+_THREADS = 256
+_TILE = _ITEMS * _THREADS
+_TAG_LIMIT = 1 << 32
+
+
+class SegsumGeometry(NamedTuple):
+    """K10's launch (``sps_segsum_geometry``): entries a thread, threads a
+    CTA, CTAs (one a tile), entries a tile, 16-byte loads (or single)."""
+
+    items: int
+    threads: int
+    ctas: int
+    tile: int
+    vector: bool
+
+
+def segsum_geometry(numel: int, nrows: int, prod_ptr: int) -> SegsumGeometry:
+    """Host replay of ``sps_segsum_geometry`` (csrc/segsum.cu): CTA ``c``
+    holds the entries ``[c * tile, (c + 1) * tile)`` of a ``prod`` of
+    ``numel`` entries at address ``prod_ptr`` (16-byte loads when it is
+    16-byte aligned); one CTA at least while there are rows, none
+    without."""
+    ctas = 0 if nrows == 0 else max(1, -(-numel // _TILE))
+    return SegsumGeometry(_ITEMS, _THREADS, ctas, _TILE, prod_ptr % 16 == 0)
+
+
+# K10's carry slots for each (card, stream): [int64 tensor zeroed once, the
+# last call's tag]. A call takes the next tag, so no slot written by an
+# earlier call reads as this call's; calls on one stream run in order.
+_CARRIES: dict = {}
+
+
+def _carry_slots(device: torch.device, stream: int, ctas: int):
+    key = (device.index, stream)
+    slot = _CARRIES.get(key)
+    if slot is None or slot[0].shape[0] < ctas or slot[1] + 1 >= _TAG_LIMIT:
+        slot = [torch.zeros(ctas, dtype=torch.int64, device=device), 0]
+        _CARRIES[key] = slot
+    slot[1] += 1
+    return slot[0], slot[1]
 
 
 def pad_products(prod: Tensor, entries_per_block: int) -> Tensor:
@@ -87,13 +134,6 @@ def segmented_row_sums_reference(prod: Tensor, row_ptr: Tensor,
     return y.index_add_(0, r[ok], prod[ok])
 
 
-def _lanes_per_row(n_entries: int, nrows: int) -> int:
-    """Lanes a row gets in K10: the power of two at or above a quarter of
-    the mean row length (about four entries a lane), at most a warp."""
-    quarter = -(-n_entries // (4 * max(nrows, 1)))
-    return min(1 << max(quarter - 1, 0).bit_length(), 32)
-
-
 def segmented_row_sums(prod: Tensor, row_ptr: Tensor, *, nrows: int,
                        rows_per_block: int, entries_per_block: int) -> Tensor:
     """Per-row sums (float32, ``(nrows,)``) of ``prod`` in row-pointer
@@ -107,19 +147,33 @@ def segmented_row_sums(prod: Tensor, row_ptr: Tensor, *, nrows: int,
     del rows_per_block, entries_per_block
     if prod.ndim != 1 or row_ptr.ndim != 1:
         raise ValueError("segmented_row_sums: prod and row_ptr must be 1-D")
-    if prod.device != row_ptr.device:
+    if (prod.is_cuda != row_ptr.is_cuda
+            or prod.get_device() != row_ptr.get_device()):
         raise ValueError(f"prod is on {prod.device} but row_ptr is on "
                          f"{row_ptr.device}")
-    if prod.device.type == "cpu":
+    if not prod.is_cuda:
         return segmented_row_sums_reference(prod, row_ptr, nrows)
-    prod = prod.to(torch.float32).contiguous()
-    rp = _row_ptr(row_ptr, nrows)
-    y = torch.empty(nrows, dtype=torch.float32, device=prod.device)
-    lib = backend.load_kernels()
-    err = lib.sps_segsum(prod.data_ptr(), rp.data_ptr(), nrows,
-                         _lanes_per_row(prod.shape[0], nrows), y.data_ptr(),
-                         backend.current_stream(prod.device))
-    backend.check(err, "sps_segsum")
+    # Cast, extend or copy only what the kernel cannot take as it is.
+    if prod.dtype is not torch.float32:
+        prod = prod.to(torch.float32)
+    if not prod.is_contiguous():
+        prod = prod.contiguous()
+    rp = row_ptr
+    if (rp.dtype is not torch.int32 or rp.shape[0] < nrows + 1
+            or not rp.is_contiguous()):
+        rp = _row_ptr(row_ptr, nrows)
+    dev = prod.device
+    y = torch.empty(nrows, dtype=torch.float32, device=dev)
+    if nrows == 0:
+        return y
+    stream = backend.current_stream_of(dev.index)
+    numel = prod.shape[0]
+    carries, tag = _carry_slots(dev, stream, max(1, -(-numel // _TILE)))
+    err = backend.load_kernels().sps_segsum(
+        prod.data_ptr(), numel, rp.data_ptr(), nrows, y.data_ptr(),
+        carries.data_ptr(), carries.shape[0], tag, stream)
+    if err:
+        backend.check(err, "sps_segsum")
     segmented_row_sums.launches += 1
     return y
 
@@ -140,8 +194,14 @@ def csr_products(csr: SparseCSR, x: Tensor) -> Tensor:
 def spmv_csr_segsum(csr: SparseCSR, x: Tensor, *, rows_per_block: int = 256,
                     entries_per_block: int | None = None) -> Tensor:
     """CSR SpMV (float32): the products ``vals * x[cols]`` by a gather,
-    the row reduction by K10 (the JAX ``spmv_csr_pallas``)."""
+    the row reduction by K10 (the JAX ``spmv_csr_pallas``). Only the live
+    entries are multiplied and handed to K10: the padding past
+    ``csr.nnz`` adds nothing to any row (``csr_products`` gives it 0), and
+    K10's tiles follow the length of ``prod``."""
+    x = operand_tensor(x, csr.device)
+    live = csr.nnz
+    prod = (csr.vals[:live] * _gather_rows(x, csr.cols[:live])).to(
+        torch.float32)
     return segmented_row_sums(
-        csr_products(csr, x), csr.row_ptr, nrows=csr.nrows,
-        rows_per_block=rows_per_block,
+        prod, csr.row_ptr, nrows=csr.nrows, rows_per_block=rows_per_block,
         entries_per_block=entries_per_block or 0)

@@ -193,7 +193,7 @@ def aslinearoperator(a) -> LinearOperator:
     """
     from ..core.bsr import SparseBSR
     from ..core.tiled import SparseTiledCOO
-    from ..ops.dia_stream import PreparedDIA
+    from ..ops.dia_stream import PreparedDIA, prepare_dia
     from ..ops.general import PreparedGeneral
     from ..ops.spmm import spmm, spmv
     from ..ops.spmv_kernels import best_spmm, best_spmv
@@ -212,7 +212,13 @@ def aslinearoperator(a) -> LinearOperator:
         return LinearOperator(a.shape, lambda x: spmv(a, x), None,
                               matmat=lambda X: spmm(a, X))
     if isinstance(a, SparseDIA):
-        return LinearOperator(a.shape, lambda x: best_spmv(a, x), None,
+        # Prepared once: for float32 contiguous diagonals prepare_dia is the
+        # identity (the same tensor, so the same values and gradients) and
+        # each matvec skips it; other types are cast on every matvec, as
+        # best_spmv casts them.
+        op = (prepare_dia(a) if a.data.dtype == torch.float32
+              and a.data.is_contiguous() else a)
+        return LinearOperator(a.shape, lambda x: best_spmv(op, x), None,
                               matmat=lambda X: best_spmm(a, X))
     if isinstance(a, (SparseBSR, SparseTiledCOO)):
         return LinearOperator(

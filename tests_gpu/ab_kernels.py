@@ -1,24 +1,42 @@
 #!/usr/bin/env python3
-"""K4, K7 and K12 of this checkout against scratch variants of their sources
-and against another checkout's, on one CUDA card.
+"""K1, K4, K7, K10 and K12 of this checkout against scratch variants of
+their sources and against another checkout's, on one CUDA card.
 
-    python3 tests_gpu/ab_kernels.py [--other DIR] [--kernels k4,k7,k12]
-                                    [--out FILE]
+    python3 tests_gpu/ab_kernels.py [--other DIR]
+                                    [--kernels k1,k4,k7,k10,k12] [--out FILE]
 
 Copies ``spsparse_torch/csrc`` into a temporary directory once for each
-variant, edits the copy's ``dia_cg.cu`` (K4), ``tiled.cu`` (K7) or
-``block_sort.cu`` (K12), compiles each edited source on its own with the
+variant, edits the copy's ``dia.cu`` (K1, K2), ``dia_cg.cu`` (K4),
+``tiled.cu`` (K7), ``segsum.cu`` (K10) or ``block_sort.cu`` (K12),
+compiles each edited source on its own with the
 repository's nvcc flags (all in parallel, ``-Xptxas -v``) and times the
 copy's kernel against this checkout's library in turns (copy, this, this,
 copy):
 
-* ``other`` (with ``--other DIR``): the three sources as another checkout of
+* ``other`` (with ``--other DIR``): the sources as another checkout of
   the repository holds them (the parent commit unpacked with
   ``git archive``, say). K7 and K12 compute the same function there, so
   their results must equal this checkout's bit for bit; K4 is held to this
   checkout's within 1e-4 of max|x| (a two-pass K4, the design before the
   persistent one, sums in another order; its C signature is told apart by
-  its source).
+  its source). K1 and K2 sum each row's diagonals in the same order with
+  the same fused multiply-adds in both designs, so the bits are compared
+  and reported (``bit_for_bit``), and the results held to rtol 1e-5; K10
+  (a group of lanes a row before, a fixed range of entries a CTA now: two
+  sum orders) is held to rtol 1e-5 and atol 1e-5 of max|y|. The earlier
+  K10's C signature (lanes a row, no carry slots) is told apart by its
+  source.
+* K1 variants (the same function, so bit for bit): ``K1 batches of 8``
+  (diagonals in flight a thread, four in this checkout), with and without
+  a floor of four CTAs an SM (a cap of 64 registers), ``K1 four CTAs an
+  SM`` and ``K1 f32 8 rows a thread`` (two 16-byte loads a diagonal, half
+  the CTAs); and an ablation, ``K1 no x loads`` (wrong results; only the
+  time is kept).
+* ``K10 search only``: every tile finds its rows by the 32-way search
+  and the rounds of row pointers, never from its row-pointer window (the
+  same function, so bit for bit); and two ablations (wrong results, only
+  the time is kept): ``K10 loads only`` (each tile's loads and nothing
+  after) and ``K10 no carry waits``.
 * K4 ablations, each with a part of the persistent kernel's work taken out
   (the results are wrong, save without the prefetch; only the time is
   kept): ``K4 no diagonal stream`` (every tap's coefficient 1, no load),
@@ -40,8 +58,15 @@ copy):
   data moves through shared memory), and ``loads and stores only`` (all
   three out). The time each saves is what that part costs.
 
-Cases: K4 per CG iteration (``chip_smoke.per_iteration_ms``: solves of 72
-and 8 iterations) on ``chip_smoke.spd_dia`` 11-diagonal matrices at n =
+Cases: K1 at n = 2**20 on config 2's band (offsets -5..5, f32 and bf16),
+on the solver path's Poisson offsets (0, +-1, +-1024; span 2048) and on
+11 diagonals spread evenly over spans of 64 and 4096 (config 2's bytes,
+past the 50 MB L2);
+K2 (64 iterations) on config 2's band; K10 on bench config 2c's CSR
+products (``chip_smoke.cfg2c_entries``, 2**20 rows) and on
+``chip_smoke.phase_segsum``'s skewed row pointer; K4 per CG iteration
+(``chip_smoke.per_iteration_ms``: solves of 72 and 8 iterations) on
+``chip_smoke.spd_dia`` 11-diagonal matrices at n =
 2**20 (float32 and bfloat16 diagonals), 2**22 (the device-memory mode) and
 2**14 (where the exchanges dominate); K7 on bench config 3's tiles
 (``chip_smoke.regrid_entries``, 2**18 rows, X of 128 columns; as built,
@@ -123,6 +148,48 @@ ABLATIONS = {
 ABLATIONS["loads and stores only"] = ("block_sort.cu", [
     e for name in ("no shuffle stages", "no register stages", "no exchanges")
     for e in ABLATIONS[name][1]])
+ABLATIONS["K1 batches of 8"] = ("dia.cu", [
+    ("constexpr int kBatch = 4;", "constexpr int kBatch = 8;", 1)])
+ABLATIONS["K1 batches of 8, four CTAs an SM"] = ("dia.cu", [
+    ("constexpr int kBatch = 4;", "constexpr int kBatch = 8;", 1),
+    ("__launch_bounds__(kThreads)\n    dia_spmv_kernel(",
+     "__launch_bounds__(kThreads, 4)\n    dia_spmv_kernel(", 1)])
+ABLATIONS["K1 four CTAs an SM"] = ("dia.cu", [
+    ("__launch_bounds__(kThreads)\n    dia_spmv_kernel(",
+     "__launch_bounds__(kThreads, 4)\n    dia_spmv_kernel(", 1)])
+ABLATIONS["K1 f32 8 rows a thread"] = ("dia.cu", [
+    ("struct Rows<float> {\n  static constexpr int V = 4;",
+     "struct Rows<float> {\n  static constexpr int V = 8;", 1)])
+# K1 without its reads of x (wrong results; only the time is kept): what
+# the V scalar loads of x a diagonal cost a thread.
+ABLATIONS["K1 no x loads"] = ("dia.cu", [
+    ("acc[v] = fmaf(d[b].get(v), __ldg(x + j), acc[v]);",
+     "acc[v] = fmaf(d[b].get(v), 1.f, acc[v]);", 1)])
+ABLATIONS["K10 search only"] = ("segsum.cu", [
+    ("  const bool from_window =\n", "  const bool from_window = false &&\n",
+     1)])
+# K10 with parts of its work taken out (wrong results; only the time is
+# kept): the loads alone (rp[0], rp[nrows], then the row-pointer window and
+# the entries), and everything but the waits for earlier tiles' carries.
+ABLATIONS["K10 loads only"] = ("segsum.cu", [
+    ("  // Mark where the tile's rows end; empty rows are 0; note where the row",
+     "  if (v[0][0] == 1.5f) y[t] = v[1][1] + v[2][2] + v[3][3] + s_rp[t];\n"
+     "  return;\n"
+     "  // Mark where the tile's rows end; empty rows are 0; note where the row",
+     1)])
+ABLATIONS["K10 no carry waits"] = ("segsum.cu", [
+    ("    if (!before.f && s_lead < a) {", "    if (false) {", 1)])
+WRONG_RESULTS = {"K10 loads only", "K10 no carry waits", "K1 no x loads"}
+# K10's tile (the same function; another sum order, so held to rtol 1e-5):
+# 2 or 8 groups of four a lane (tiles of 2048 or 8192 entries), and 512
+# threads a CTA (8192 entries).
+ABLATIONS["K10 2 groups a lane"] = ("segsum.cu", [
+    ("constexpr int kGroups = 4;", "constexpr int kGroups = 2;", 1)])
+ABLATIONS["K10 8 groups a lane"] = ("segsum.cu", [
+    ("constexpr int kGroups = 4;", "constexpr int kGroups = 8;", 1)])
+ABLATIONS["K10 512 threads"] = ("segsum.cu", [
+    ("constexpr int kThreads = 256;", "constexpr int kThreads = 512;", 1)])
+RETILED = {"K10 2 groups a lane", "K10 8 groups a lane", "K10 512 threads"}
 
 
 # The instantiations the timed cases run: K4 (every one; the two-pass
@@ -187,10 +254,16 @@ def spill_sites(so: Path, pattern: str) -> dict:
     return out
 
 
-SOURCES = {"k4": "dia_cg.cu", "k7": "tiled.cu", "k12": "block_sort.cu"}
-ENTRY_POINTS = {"dia_cg.cu": ("sps_dia_cg", "sps_dia_cg_geometry"),
+SOURCES = {"k1": "dia.cu", "k4": "dia_cg.cu", "k7": "tiled.cu",
+           "k10": "segsum.cu", "k12": "block_sort.cu"}
+ENTRY_POINTS = {"dia.cu": ("sps_dia_spmv", "sps_dia_chain"),
+                "dia_cg.cu": ("sps_dia_cg", "sps_dia_cg_geometry"),
                 "tiled.cu": ("sps_tiled_onehot",),
+                "segsum.cu": ("sps_segsum",),
                 "block_sort.cu": ("sps_block_sort",)}
+# The K10 C signature before the fixed-range design (lanes a row).
+GROUP_K10 = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+             ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
 # The two-pass K4's C signature (before the persistent kernel).
 TWO_PASS_K4 = [ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
                ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
@@ -231,13 +304,18 @@ def build(tmp: Path, other: Path | None, sources: set) -> dict:
         if proc.returncode:
             raise RuntimeError(f"{name} ({src}): nvcc failed\n{log}")
         lib = ctypes.CDLL(str(so))
-        two_pass = src == "dia_cg.cu" and "cg_pass_a" in path.read_text()
+        # An earlier design with its own C signature: the two-pass K4, the
+        # K10 of a group of lanes a row.
+        text = path.read_text()
+        two_pass = (src == "dia_cg.cu" and "cg_pass_a" in text
+                    or src == "segsum.cu" and "int group" in text)
         for fn in ENTRY_POINTS[src]:
             if two_pass and fn == "sps_dia_cg_geometry":
                 continue
-            getattr(lib, fn).argtypes = (TWO_PASS_K4 if two_pass
-                                         and fn == "sps_dia_cg"
-                                         else backend._SIGNATURES[fn])
+            getattr(lib, fn).argtypes = (
+                TWO_PASS_K4 if two_pass and fn == "sps_dia_cg"
+                else GROUP_K10 if two_pass and fn == "sps_segsum"
+                else backend._SIGNATURES[fn])
         libs.setdefault(name, {})[src] = (lib, log, two_pass)
     return libs
 
@@ -328,6 +406,111 @@ def k12_call(lib, arrays):
     return run
 
 
+def k1_call(lib, prep, x):
+    """K1 of ``lib`` on ``prep`` and ``x`` (the library's C signature is
+    the same in both designs)."""
+    op = prep.launch
+
+    def run():
+        y = torch.empty(op.n, device=x.device)
+        backend.check(lib.sps_dia_spmv(
+            op.code, prep.data.data_ptr(), op.ld, op.n, op.m, op.K,
+            op.offsets_ptr, x.data_ptr(), y.data_ptr(), 1.0,
+            torch.cuda.current_stream().cuda_stream), "sps_dia_spmv")
+        return y
+    return run
+
+
+def k2_call(lib, prep, x, iters):
+    """``iters`` chained SpMVs of ``lib``'s K2 (scale 0.3)."""
+    op = prep.launch
+
+    def run():
+        a, b = x.clone(), torch.empty_like(x)
+        backend.check(lib.sps_dia_chain(
+            op.code, prep.data.data_ptr(), op.ld, op.n, op.K,
+            op.offsets_ptr, a.data_ptr(), b.data_ptr(), iters,
+            cs.CHAIN_SCALE, torch.cuda.current_stream().cuda_stream),
+            "sps_dia_chain")
+        return a if iters % 2 == 0 else b
+    return run
+
+
+def k1_cases():
+    """``{case: (prep, x)}`` at n = 2**20: config 2's band in f32 and bf16,
+    the Poisson offsets and five diagonals of each span."""
+    from spsparse_torch.ops import prepare_dia
+
+    n = cs.N
+    band = cs.band_of(n)
+    B = sp.SparseDIA(data=torch.from_numpy(band.T.copy()).cuda(),
+                     offsets=tuple(range(-cs.BAND, cs.BAND + 1)),
+                     shape=(n, n))
+    x = torch.from_numpy(np.random.default_rng(1).uniform(-1, 1, n)
+                         .astype(np.float32)).cuda()
+    cases = {"K1 f32, config 2": (prepare_dia(B), x),
+             "K1 bf16, config 2": (prepare_dia(B, dtype=torch.bfloat16), x)}
+    rng = np.random.default_rng(3)
+    spans = [("K1 f32, P's offsets (span 2048)", (-1024, -1, 0, 1, 1024))]
+    spans += [(f"K1 f32, 11 diagonals over span {s}",
+               tuple(int(o) for o in np.linspace(-s // 2, s // 2, 11)))
+              for s in (64, 4096)]
+    for what, offs in spans:
+        data = torch.from_numpy(rng.uniform(-1, 1, (len(offs), n))
+                                .astype(np.float32)).cuda()
+        cases[what] = (prepare_dia(sp.SparseDIA(data=data, offsets=offs,
+                                                shape=(n, n))), x)
+    return cases
+
+
+def k10_call(lib, group: bool, prod, rp, nrows):
+    """K10 of ``lib``: the fixed-range kernel with this checkout's carry
+    slots, or the earlier kernel with its lanes a row (its wrapper's rule:
+    the power of two at or above a quarter of the mean row length, at most
+    32)."""
+    from spsparse_torch.ops.segsum import _TILE, _carry_slots
+
+    def run():
+        y = torch.empty(nrows, device=prod.device)
+        stream = torch.cuda.current_stream().cuda_stream
+        if group:
+            quarter = -(-prod.shape[0] // (4 * max(nrows, 1)))
+            lanes = min(1 << max(quarter - 1, 0).bit_length(), 32)
+            err = lib.sps_segsum(prod.data_ptr(), rp.data_ptr(), nrows,
+                                 lanes, y.data_ptr(), stream)
+        else:
+            # Slots for tiles down to a quarter of this checkout's.
+            carries, tag = _carry_slots(
+                prod.device, stream, max(1, -(-prod.shape[0] // (_TILE // 4))))
+            err = lib.sps_segsum(prod.data_ptr(), prod.shape[0],
+                                 rp.data_ptr(), nrows, y.data_ptr(),
+                                 carries.data_ptr(), carries.shape[0], tag,
+                                 stream)
+        backend.check(err, "sps_segsum")
+        return y
+    return run
+
+
+def k10_cases():
+    """``{case: (prod, row_ptr, nrows)}``: config 2c's CSR products and
+    phase 23's skewed row pointer."""
+    from spsparse_torch.ops import csr_products
+
+    n = cs.N
+    r, c, v, x = cs.cfg2c_entries(n)
+    csr = sp.to_csr(cs.build_coo(sp, "cuda", (n, n), r, c, v))
+    prod = csr_products(csr, torch.from_numpy(x).cuda())
+    rng = np.random.default_rng(11)
+    ns = 1 << 16
+    counts = rng.integers(0, 4, ns) * (np.arange(ns) % 5 != 0)
+    counts[ns // 3] = 4096
+    rp = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    ph = rng.uniform(-1, 1, int(rp[-1])).astype(np.float32)
+    return {"K10 config 2c": (prod, csr.row_ptr[:n + 1].contiguous(), n),
+            "K10 skewed row pointer": (torch.from_numpy(ph).cuda(),
+                                       torch.from_numpy(rp).cuda(), ns)}
+
+
 def k7_cases():
     m = cs.SPMM_M
     rr, cc, vals, Xh = cs.regrid_entries(m)
@@ -352,7 +535,7 @@ def k7_cases():
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", type=Path, default=None)
-    ap.add_argument("--kernels", default="k4,k7,k12")
+    ap.add_argument("--kernels", default="k1,k4,k7,k10,k12")
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -366,6 +549,8 @@ def main() -> int:
     smi = cs.nvidia_smi_line()
     this = backend.load_kernels()
     kw = dict(reps=7, inner=3, warmup=2)
+    # K1 and K10 run for tens of us: 20 calls a timed run.
+    kw_short = dict(reps=15, inner=20, warmup=3)
     lines = []
 
     def emit(row):
@@ -374,6 +559,8 @@ def main() -> int:
         print(line, flush=True)
         lines.append(line)
 
+    k1 = k1_cases() if "k1" in chosen else {}
+    k10 = k10_cases() if "k10" in chosen else {}
     k4 = k4_cases() if "k4" in chosen else {}
     k7 = k7_cases() if "k7" in chosen else {}
     if "k12" in chosen:
@@ -388,7 +575,51 @@ def main() -> int:
                      {SOURCES[k] for k in chosen})
         for name, by_src in libs.items():
             for src, (lib, log, two_pass) in by_src.items():
-                if src == "dia_cg.cu":
+                if src == "dia.cu":
+                    cases = [(what, k1_call(this, prep, x),
+                              k1_call(lib, prep, x))
+                             for what, (prep, x) in k1.items()]
+                    if name == "other":
+                        prep, x = k1["K1 f32, config 2"]
+                        cases.append((
+                            "K2 f32, config 2, 64 iterations",
+                            k2_call(this, prep, x, cs.CHAIN_ITERS),
+                            k2_call(lib, prep, x, cs.CHAIN_ITERS)))
+                    for what, mine, theirs in cases:
+                        y, z = mine(), theirs()
+                        same = torch.equal(y.view(torch.int32),
+                                           z.view(torch.int32))
+                        err = float((y - z).abs().max())
+                        if name not in WRONG_RESULTS and not (
+                                same or name == "other" and err <= 1e-5
+                                * float(y.abs().max())):
+                            raise RuntimeError(f"{name}: {what} differs "
+                                               f"({err})")
+                        ms, var_ms = cs.compare_times(torch, mine, theirs,
+                                                      **kw_short)
+                        emit({"variant": name, "case": what, "this_ms": ms,
+                              "variant_ms": var_ms, "bit_for_bit": same,
+                              "max_abs_err": err,
+                              "ptxas": ptxas_summary(log, "dia_spmv")})
+                elif src == "segsum.cu":
+                    for what, (prod, rp, nrows) in k10.items():
+                        mine = k10_call(this, False, prod, rp, nrows)
+                        theirs = k10_call(lib, two_pass, prod, rp, nrows)
+                        y, z = mine(), theirs()
+                        err = float((y - z).abs().max())
+                        if name not in WRONG_RESULTS and not (
+                                err <= 1e-5 * float(y.abs().max())
+                                and (name in RETILED | {"other"}
+                                     or torch.equal(y.view(torch.int32),
+                                                    z.view(torch.int32)))):
+                            raise RuntimeError(f"{name}: {what} differs "
+                                               f"({err})")
+                        ms, var_ms = cs.compare_times(torch, mine, theirs,
+                                                      **kw_short)
+                        emit({"variant": name, "case": what, "this_ms": ms,
+                              "variant_ms": var_ms, "max_abs_err": err,
+                              "ptxas": ptxas_summary(log, "segsum")})
+                elif src == "dia_cg.cu":
                     for what, (prep, b) in k4.items():
                         mine = k4_call(this, False, prep, b)
                         theirs = k4_call(lib, two_pass, prep, b)

@@ -6,11 +6,14 @@
 Builds bench config 2c's CSR products as ``chip_smoke.py`` does (2**20
 rows, 10 uniform-random columns a row) and times ``segmented_row_sums`` on
 them: by CUDA events at 10 and at 100 calls a timed run
-(``chip_smoke.time_ms``), by the host clock over 2000 calls that are not
-waited for (the rate at which the host issues them), and the parts of the
-wrapper one by one on the host clock (its checks and casts, the row pointer,
-the output's allocation, the stream lookup, the library lookup, and the
-ctypes call with its launch on arguments made beforehand). When the host
+(``chip_smoke.time_ms``), by the host clock over bursts of 100 calls that
+are not waited for (``chip_smoke.host_issue_us``: the rate at which the
+host issues them), and the parts of the
+wrapper one by one on the host clock (its checks, the output's allocation,
+the stream lookup, the carry slots, the library lookup, and the ctypes
+call with its launch on arguments made beforehand), and the device time a
+call from ``torch.profiler``; beside them, a ``copy_`` that moves the same
+bytes. When the host
 issues a call more slowly than the card runs it, the event time of a run
 of calls is the host's. Prints one JSON line with the card's name and
 power limit.
@@ -20,7 +23,6 @@ from __future__ import annotations
 
 import json
 import sys
-import time
 from pathlib import Path
 
 import numpy as np
@@ -34,21 +36,6 @@ from spsparse_torch import backend  # noqa: E402
 from spsparse_torch.ops import csr_products, segmented_row_sums  # noqa: E402
 from spsparse_torch.ops import segsum as segsum_mod  # noqa: E402
 
-CALLS = 2000
-
-
-def host_us(fn, calls: int = CALLS) -> float:
-    """Microseconds a call of ``fn`` on the host clock, not waited for."""
-    for _ in range(10):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(calls):
-        fn()
-    t1 = time.perf_counter()
-    torch.cuda.synchronize()
-    return (t1 - t0) / calls * 1e6
-
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -59,42 +46,58 @@ def main() -> int:
     r, c, v, x = cs.cfg2c_entries(n)
     csr = sp.to_csr(cs.build_coo(sp, dev, (n, n), r, c, v))
     prod = csr_products(csr, torch.from_numpy(x).to(dev))
-    rp = segsum_mod._row_ptr(csr.row_ptr, n)
+    rp = csr.row_ptr
     y = torch.empty(n, device=dev)
     lib = backend.load_kernels()
-    lanes = segsum_mod._lanes_per_row(prod.shape[0], n)
-    stream = backend.current_stream(prod.device)
+    stream = backend.current_stream_of(prod.device.index)
+    tiles = segsum_mod.segsum_geometry(prod.shape[0], n, prod.data_ptr()).ctas
 
     def call():
         return segmented_row_sums(prod, csr.row_ptr, nrows=n,
                                   rows_per_block=256, entries_per_block=1024)
 
     def raw():
-        backend.check(lib.sps_segsum(prod.data_ptr(), rp.data_ptr(), n, lanes,
-                                     y.data_ptr(), stream), "sps_segsum")
+        carries, tag = segsum_mod._carry_slots(prod.device, stream, tiles)
+        err = lib.sps_segsum(prod.data_ptr(), prod.shape[0], rp.data_ptr(),
+                             n, y.data_ptr(), carries.data_ptr(),
+                             carries.shape[0], tag, stream)
+        if err:
+            backend.check(err, "sps_segsum")
 
     parts = {
-        "checks and casts of prod": lambda: prod.to(torch.float32)
-        .contiguous(),
-        "_row_ptr": lambda: segsum_mod._row_ptr(csr.row_ptr, n),
+        "checks of prod and row_ptr (no cast, no copy)": lambda: (
+            prod.ndim, rp.ndim, prod.is_cuda, rp.is_cuda, prod.get_device(),
+            rp.get_device(), prod.dtype is torch.float32,
+            prod.is_contiguous(), rp.dtype is torch.int32, rp.shape[0],
+            rp.is_contiguous()),
         "torch.empty(n)": lambda: torch.empty(n, dtype=torch.float32,
                                               device=prod.device),
-        "backend.current_stream": lambda: backend.current_stream(
-            prod.device),
+        "backend.current_stream_of": lambda: backend.current_stream_of(
+            prod.device.index),
+        "_carry_slots": lambda: segsum_mod._carry_slots(prod.device, stream,
+                                                        tiles),
         "backend.load_kernels": backend.load_kernels,
-        "_lanes_per_row": lambda: segsum_mod._lanes_per_row(
-            prod.shape[0], n),
-        "ctypes call and launch, arguments made beforehand": raw,
+        "ctypes call and launch (carry slots included), arguments made "
+        "beforehand": raw,
     }
+    # A copy moving K10's bytes (products, row pointers and y once each).
+    src = torch.ones((4 * csr.nnz + 8 * n) // 8, device=dev)
+    dst = torch.empty_like(src)
     out = {
+        "events ms of a copy of the same bytes (copy_), 20 calls a run":
+            float(np.median(cs.time_ms(torch, lambda: dst.copy_(src),
+                                       reps=9, inner=20))),
         "events ms, 10 calls a run": float(np.median(cs.time_ms(
             torch, call))),
         "events ms, 100 calls a run": float(np.median(cs.time_ms(
             torch, call, reps=7, inner=100))),
         "events ms of the bare ctypes call, 10 calls a run": float(
             np.median(cs.time_ms(torch, raw))),
-        "host us a call, segmented_row_sums": host_us(call),
-        "host us a part": {name: host_us(fn) for name, fn in parts.items()},
+        "device us a call (torch.profiler)": 1e3 * cs.device_ms(torch,
+                                                                call),
+        "host us a call, segmented_row_sums": cs.host_issue_us(torch, call),
+        "host us a part": {name: cs.host_issue_us(torch, fn)
+                           for name, fn in parts.items()},
         "nnz": csr.nnz, "n": n,
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi}
     print(json.dumps(out), flush=True)

@@ -16,8 +16,13 @@ with atol 1e-5 of max|ref|; bfloat16 blocks atol 1e-4 of max|ref| (exact
 products, float32 sums in another order); gradients rtol/atol 1e-4;
 float32 K9 and K13 equal bit for bit to each other (the same sum order; a
 skipped chunk adds only exact zeros), every kernel to a second call; NaN
-and Inf exactly where the plain version has them. K10
-rtol/atol 1e-5 (another sum order); K11's slot grid bit for bit (one
+and Inf exactly where the plain version has them. K1 on each of its
+paths also bit for bit from one call to the next, its launch equal to the
+host replay's. K10
+rtol/atol 1e-5 (another sum order), on its edge shapes against float64
+row sums (a 20000-entry row summed in float32 in order, as the plain
+version does, is 1e-4 off), bit for bit from one call to the next, its
+launch equal to the host replay's; K11's slot grid bit for bit (one
 multiply a slot, the same slots as the plain sort pipeline), its SpMV
 rtol 1e-5 against the plain version and float64; K12 keys exact, payloads
 exact when the sort is stable and otherwise as a multiset within each run
@@ -91,6 +96,63 @@ def test_k1_rectangular_matches_plain():
     torch.testing.assert_close(spmv_dia_stream(prep, x),
                                spmv_dia_stream_reference(prep, x),
                                rtol=1e-5, atol=1e-5)
+
+
+def k1_operand(dev, rng, n, m, offsets, dtype, storage_offset=0):
+    """A prepared DIA operand (n x m) whose data is contiguous at
+    ``storage_offset`` elements into its storage (an odd offset misaligns
+    it), columns outside [0, m) holding NaN: K1 must not use them."""
+    offs = np.asarray(offsets)
+    cols = np.arange(n)[:, None] + offs[None, :]
+    valid = (cols >= 0) & (cols < m)
+    data = np.where(valid, rng.uniform(-1, 1, (n, offs.size)), np.nan)
+    flat = torch.from_numpy(data.T.astype(np.float32).ravel()).to(dev)
+    store = torch.empty(storage_offset + flat.numel(), device=dev,
+                        dtype=getattr(torch, dtype))
+    store[storage_offset:] = flat.to(store.dtype)
+    return dia_stream_mod.PreparedDIA(
+        data=store[storage_offset:].view(offs.size, n),
+        offsets=tuple(int(o) for o in offs), shape=(n, m))
+
+
+K1_SHAPES = {
+    "scalar path, n = 2^16 + 3": (65539, 65539, range(-5, 6), 0),
+    "odd storage offset": (4096, 4096, range(-5, 6), 1),
+    "m < n": (5000, 3000, (-2, 0, 1, 2500), 0),
+    "m > n": (3000, 5000, (-2, 0, 1, 2500), 0),
+    "offsets beyond +-m": (4096, 4096, (-4101, -2, 0, 3, 4100), 0),
+    "P's offsets": (1 << 16, 1 << 16, (-256, -1, 0, 1, 256), 0),
+    "span 8192": (1 << 16, 1 << 16, (-4096, -1, 0, 1, 4096), 0),
+    "128 diagonals": (8192, 8192, range(-64, 64), 0),
+    "n = 100": (100, 100, range(-5, 6), 0),
+}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", list(K1_SHAPES))
+def test_k1_shapes_bitwise_and_geometry(dtype, case):
+    """K1 on each path (16-byte and scalar, interior and edge CTAs)
+    against its plain version (rtol 1e-5, atol 1e-5 of max|ref|), the same
+    bits from a second call, and the launch the library reports equal to
+    the host replay's."""
+    dev = _cuda()
+    n, m, offsets, store_off = K1_SHAPES[case]
+    prep = k1_operand(dev, np.random.default_rng(n + m), n, m, offsets,
+                      dtype, store_off)
+    x = torch.from_numpy(np.random.default_rng(7).uniform(-1, 1, m)
+                         .astype(np.float32)).to(dev)
+    y = spmv_dia_stream(prep, x)
+    y2 = spmv_dia_stream(prep, x)
+    torch.cuda.synchronize()
+    ref = spmv_dia_stream_reference(prep, x)
+    assert bool(torch.isfinite(y).all())
+    torch.testing.assert_close(y, ref, rtol=1e-5,
+                               atol=1e-5 * float(ref.abs().max()))
+    assert torch.equal(y.view(torch.int32), y2.view(torch.int32))
+    geo = chip_smoke.k1_geometry(prep, y)
+    assert geo == chip_smoke.k1_replay(prep, y)
+    assert geo[3] == int(not (case.startswith("scalar") or store_off
+                                  or n % geo[0]))
 
 
 def test_best_spmv_float64_dia_stays_float64():
@@ -1192,6 +1254,68 @@ def test_k10_spmv_csr_segsum_matches_scipy():
     want = dense @ x.astype(np.float64)
     np.testing.assert_allclose(y.cpu().numpy(), want, rtol=1e-5,
                                atol=1e-5 * np.abs(want).max())
+
+
+def k10_case(dev, case):
+    """``(prod, row_ptr, nrows)`` on the card: products outside
+    [rp[0], rp[nrows]) are NaN, so K10 must not read them."""
+    rng = np.random.default_rng(70)
+    head, tail = 0, 5
+    if case == "empty rows":
+        counts = rng.integers(0, 3, 20000) * (rng.random(20000) < 0.3)
+    elif case == "a row across several CTAs":
+        counts = rng.integers(0, 12, 3000)
+        counts[1000] = 20000               # about five tiles of 4096
+    elif case == "rp[0] != 0":
+        counts = rng.integers(0, 30, 5000)
+        head = 4099
+    elif case == "nnz = 0":
+        counts = np.zeros(777, np.int64)
+    elif case == "nrows = 0":
+        counts = np.zeros(0, np.int64)
+    else:                                  # "unaligned prod": single loads
+        counts = rng.integers(0, 30, 5000)
+        head = 1
+    rp = (head + np.concatenate([[0], np.cumsum(counts)])).astype(np.int32)
+    prod = np.full(int(rp[-1]) + tail, np.nan, np.float32)
+    prod[head:rp[-1]] = rng.uniform(-1, 1, int(rp[-1]) - head)
+    p = torch.from_numpy(prod).to(dev)
+    if case == "unaligned prod":
+        p = p[1:]
+        rp = rp - 1
+    return p, torch.from_numpy(rp).to(dev), counts.size
+
+
+@pytest.mark.parametrize("case", ["empty rows", "a row across several CTAs",
+                                  "rp[0] != 0", "nnz = 0", "nrows = 0",
+                                  "unaligned prod"])
+def test_k10_shapes_bitwise_and_geometry(case):
+    """K10 where rows cross CTAs, on empty rows and ranges, with an
+    offset and an unaligned head, against float64 row sums (rtol 1e-5,
+    atol 1e-5 of max|ref|: the plain version sums a 20000-entry row in
+    float32 in order, 1e-4 off); the same bits from a second call; the
+    launch the library reports equal to the host replay's."""
+    from spsparse_torch.ops import segmented_row_sums
+
+    dev = _cuda()
+    prod, rp, nrows = k10_case(dev, case)
+    before = segmented_row_sums.launches
+    kw = dict(nrows=nrows, rows_per_block=8, entries_per_block=128)
+    y = segmented_row_sums(prod, rp, **kw)
+    y2 = segmented_row_sums(prod, rp, **kw)
+    torch.cuda.synchronize()
+    assert segmented_row_sums.launches == before + (2 if nrows else 0)
+    ref = torch.zeros(nrows, dtype=torch.float64).index_add_(
+        0, torch.repeat_interleave(torch.arange(nrows), torch.diff(
+            rp.cpu().long())), prod.cpu().double()[int(rp[0]):int(rp[-1])])
+    assert y.shape == (nrows,) and bool(torch.isfinite(y).all())
+    torch.testing.assert_close(y.cpu().double(), ref, rtol=1e-5,
+                               atol=1e-5 * float(ref.abs().max())
+                               if nrows else 0.0)
+    assert torch.equal(y.view(torch.int32), y2.view(torch.int32))
+    lib, replay = chip_smoke.k10_geometry(prod, nrows)
+    assert lib == replay
+    assert lib[4] == (0 if case == "unaligned prod" else 1)
 
 
 def canon_blocks(arrays):
