@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the spsparse_torch main path, solve path, SpMM path, SpGEMM path,
-unstructured SpMV path, core path and solver path once on one CUDA card and
-check them.
+unstructured SpMV path, core path, solver path and graph path once on one
+CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -219,8 +219,58 @@ V6. ``inv`` and ``expm`` of B's leading 2048 x 2048 block against scipy's
     K2 and K10 also carry their device time (``torch.profiler``) and the
     host's issue time a call (bursts of calls not waited for).
 
-The core path and the solver path run after phase 25, so that their host
-work cannot reach the kernels' times. The launch counters of the kernel
+The graph path (``graph_path``), the graph tier (``graph/``), ``io/npz.py``
+and the CLI, on W (the 1024 x 1024 grid graph of P's off-diagonal pattern,
+2**20 nodes, 4,190,208 entries, float64 weights uniform [0.5, 1.5) equal in
+both orientations), U (the same pattern unweighted, float32) and R (config
+2c's digraph, 2**20 nodes, 10 random heads a node, duplicates dropped,
+float32 weights uniform [0.5, 1.5)), all from ``default_rng``; the host
+tier, Python loops over nodes, on smaller graphs: R16 (the family of R at
+2**16 nodes), a 2048 x 2048 bipartite graph, a ladder of 10**5 rows, a flow
+network of 2**14 nodes and a 16 x 16 grid:
+
+G1. ``spmv_semiring`` with each of the six semirings on R, x of 8 columns,
+    against ``relax`` on ``prepare_relax(R)`` (min/max exactly, sums to
+    rtol 1e-5); MIN_PLUS and PLUS_TIMES against float64 oracles (rtol
+    1e-6 and 1e-5).
+G2. ``bellman_ford`` on W from 8 sources, through the edge list and the
+    ``RelaxPlan``, with predecessors: equal to scipy's ``dijkstra``, every
+    tree edge with ``d[pred[j]] + w == d[j]``; ``dijkstra`` with ``limit``
+    and ``min_only``; ``bfs_levels`` on R against scipy's BFS;
+    ``floyd_warshall`` on W's first 2048 nodes against scipy (rtol 1e-12).
+G3. Weak components of R and of W less a random tenth of its edges (on the
+    card), strong components of R16 (host Tarjan), against scipy.
+G4. ``minimum_spanning_tree(W)`` (Boruvka on the card) against scipy's:
+    the same edges and weights.
+G5. ``laplacian(U)`` equal to scipy's; ``to_dia`` + ``prepare_dia`` and K1
+    on the ones vector: exactly 0; ``lanczos_eigsh`` (k = 6, largest, 256
+    steps) through ``aslinearoperator`` (K1): every Ritz value within
+    its float64 residual norm (plus a float32 rounding margin, 256
+    2**-24 8 = 1.2e-4) of the analytic spectrum ``4 sin^2(pi i/2048) +
+    4 sin^2(pi j/2048)`` and none above its top ``8 sin^2(1023 pi /
+    2048)`` by more than that margin; each within 1e-4 of the same
+    Lanczos run in float64 numpy on the host from the same start (which
+    stops 1.8e-4 short of the top: a cluster with gaps ~3e-5); the
+    residuals printed;
+    ``laplacian(W, normed=True)`` against scipy (rtol 1e-12).
+G6. The host tier: BFS/DFS orders and trees of R16; matchings,
+    ``structural_rank`` and the min-weight full matching (cardinality and
+    cost); the ladder's one long augmenting path; ``maximum_flow`` (value,
+    capacities, conservation); ``shortest_path``, ``reconstruct_path``,
+    ``construct_dist_matrix`` and ``yen`` — against scipy.
+G7. ``save_npz(W)`` read by scipy unchanged; scipy CSR and CSC files read
+    back by ``load_npz`` onto the card unchanged.
+G8. ``spsparse_torch.tools`` in process with no ``--device`` (so on the
+    card): info, convert, stats; solve on P (its residual against
+    float64 scipy); eigs on P against the same run replayed in float64
+    numpy on the host (its start, its 48 steps; rtol 1e-12); reorder on a
+    scrambled 2**16-row band; graph cc/sssp/mst on W against G2-G4's
+    oracles, ``--op laplacian --out`` read back against scipy's
+    (rtol 1e-12); one subprocess of ``python3 -m spsparse_torch.tools
+    info``.
+
+The core path, the solver path and the graph path run after phase 25, so
+that their host work cannot reach the kernels' times. The launch counters of the kernel
 wrappers are reset before each path and read after it; a kernel of the
 path launched no time there fails the run.
 The last lines are a JSON line per timing, the ``{"kernels": [...]}`` line,
@@ -274,10 +324,26 @@ POISSON_SIDE = 1024  # grid side of the solver path's Poisson operator P
 SOLVER_ITERS = 50    # PCG, LSQR, LSMR and CGLS iterations of V1 and V3
 EIG_K = 6            # eigenpairs and singular triplets of V2, V3 and V5
 LANCZOS_ITERS = 256  # Krylov size of V2's Lanczos and V3's svds
+CLI_EIGS_STEPS = 48  # the CLI's default eigs --iters
+# G8: the CLI's float64 Ritz values against the host's float64 replay
+# (different summation orders only)
+CLI_EIGS_RTOL = 1e-12
 LOBPCG_ITERS = 100
 EXPM_T = 0.1         # V2's expm_multiply(-t S) v
 SIGMA = 7.6          # V5's shift, near the bottom of S's spectrum
 MATFUNC_M = 2048     # rows of V6's slice of B
+GRAPH_SOURCES = 8    # G2's Bellman-Ford sources
+GRAPH_X = 8          # columns of G1's frontier
+SEMIRINGS = ("MIN_PLUS", "MAX_PLUS", "MIN_MIN", "MAX_MIN", "OR_AND",
+             "PLUS_TIMES")
+FW_N = 2048          # nodes of G2's induced subgraph of W (two grid rows)
+HOST_N = 1 << 16     # nodes of R16, the host tier's digraph (G3, G6)
+MATCH_N = 2048       # rows and columns of G6's bipartite graph
+LADDER_N = 10 ** 5   # rows of G6's ladder: one augmenting path this long
+FLOW_N = 1 << 14     # nodes of G6's flow network
+PATH_SIDE = 16       # grid side of G6's path-tools graph
+YEN_K = 8            # paths of G6's yen
+REORDER_N = 1 << 16  # rows of G8's scrambled band
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12     # H100 SXM bfloat16 on the tensor cores
@@ -2518,6 +2584,701 @@ def solver_path(torch, sp, dev, side=POISSON_SIDE, n=N,
     return st
 
 
+# ----------------------------------------------------------------------
+# The graph path: graph/ (semiring SpMV and the csgraph tier), io/npz.py
+# and the tools CLI, ending in a Laplacian Lanczos solve through K1
+# ----------------------------------------------------------------------
+
+def grid_pattern(side: int):
+    """Off-diagonal (rows, cols) of ``poisson_entries(side)``, row-major:
+    the 2-D grid graph of the solver path's Poisson operator."""
+    r, c, _ = poisson_entries(side)
+    off = r != c
+    return r[off].astype(np.int64), c[off].astype(np.int64)
+
+
+def symmetric_weights(r, c, n: int, seed: int):
+    """float64 uniform [0.5, 1.5) weights from ``default_rng(seed)``, one
+    an undirected edge, equal in both orientations (so the MST is
+    unique)."""
+    key = np.minimum(r, c) * n + np.maximum(r, c)
+    uniq, inv = np.unique(key, return_inverse=True)
+    return np.random.default_rng(seed).uniform(0.5, 1.5, uniq.size)[inv]
+
+
+def random_digraph(n: int, seed: int = 0):
+    """Config 2c's digraph: ``cfg2c_entries(n)``'s pattern (10 random heads
+    a node) with duplicates dropped, row-major; float32 weights uniform
+    [0.5, 1.5) from ``default_rng(seed + 1)``."""
+    rows, cols, _, _ = cfg2c_entries(n, seed=seed)
+    key = unique_keys(rows.astype(np.int64) * n + cols)
+    w = np.random.default_rng(seed + 1).uniform(0.5, 1.5, key.size)
+    return key // n, key % n, w.astype(np.float32)
+
+
+def unique_keys(keys) -> np.ndarray:
+    """``np.unique(keys)`` by a sort: the card machine's numpy took 17.4 s
+    for np.unique of config 2c's 10.5M keys, 0.24 s this way
+    (``tests_gpu/graph_probe.py``)."""
+    keys = np.sort(keys)
+    return keys[np.r_[True, keys[1:] != keys[:-1]]]
+
+
+def host_csr(r, c, w, n):
+    """scipy float64 CSR of (rows, cols, values)."""
+    import scipy.sparse as sps
+
+    return sps.csr_matrix((w.astype(np.float64), (r, c)), shape=(n, n))
+
+
+def graph_of(sp, dev, n, r, c, w):
+    """``(SparseCOO on dev, scipy float64 CSR)`` of row-major unique
+    entries."""
+    idx = np.stack([r, c], axis=1).astype(np.int32)
+    A = sp.SparseCOO.from_arrays(idx, w, (n, n), sort_order=(0, 1),
+                                 device=dev)
+    return A, host_csr(r, c, w, n)
+
+
+def graph_events(sp, state: dict, phase: str) -> tuple[int, int]:
+    """Sum the rounds and host syncs the graph tier's loops logged since
+    the last call into ``state`` under ``phase``, clear the log, and
+    return both."""
+    ev = [e for e in sp.utils.get_event_log() if e["op"].startswith("graph.")]
+    rounds = state.setdefault("rounds", {})[phase] = sum(
+        e["rounds"] for e in ev)
+    syncs = state.setdefault("syncs", {})[phase] = sum(e["syncs"] for e in ev)
+    sp.utils.enable_event_log(True)
+    return rounds, syncs
+
+
+def first_occurrence(labels) -> np.ndarray:
+    """Component labels renumbered in order of first occurrence."""
+    labels = np.asarray(labels)
+    uniq, first = np.unique(labels, return_index=True)
+    remap = np.empty(uniq.size, np.int64)
+    remap[np.argsort(first)] = np.arange(uniq.size)
+    return remap[np.searchsorted(uniq, labels)]
+
+
+def phase_semiring(torch, sp, dev, R, host):
+    """G1: spmv_semiring with each semiring on R (x of 8 columns) against
+    relax on prepare_relax(R); MIN_PLUS and PLUS_TIMES against float64
+    oracles on the host."""
+    from spsparse_torch import graph as gr
+
+    r, c, w = host
+    n = R.shape[0]
+    x = host_f32(20, (n, GRAPH_X))
+    xt = torch.from_numpy(x).to(dev)
+    plan = gr.prepare_relax(R)
+    has_in = torch.from_numpy(np.bincount(c, minlength=n) > 0).to(dev)
+    out = {}
+    for name in SEMIRINGS:
+        s = getattr(gr, name)
+        xi = (xt > 0).to(xt.dtype) if name == "OR_AND" else xt
+        y, yp = gr.spmv_semiring(R, xi, s), gr.relax(plan, xi, s)
+        if name == "PLUS_TIMES":
+            ok, err = close(y.cpu().numpy(), yp.cpu().numpy(), 1e-5, 1e-5)
+            require(ok, f"G1 {name}: segment path off relax (err {err})")
+        elif name == "OR_AND":
+            # where no edge arrives relax leaves the semiring identity 0,
+            # the segment path the empty max -inf (jax.ops.segment_max's)
+            require(bool(torch.equal(y[has_in], yp[has_in]))
+                    and bool((y[~has_in] == -np.inf).all())
+                    and bool((yp[~has_in] == 0).all()),
+                    f"G1 {name}: segment path differs from relax")
+        else:
+            require(bool(torch.equal(y, yp)),
+                    f"G1 {name}: segment path differs from relax")
+        out[name] = y
+    x64 = x.astype(np.float64)
+    order = np.argsort(c, kind="stable")
+    heads, starts = np.unique(c[order], return_index=True)
+    ref = np.full((n, GRAPH_X), np.inf)
+    ref[heads] = np.minimum.reduceat(
+        w[order].astype(np.float64)[:, None] + x64[r[order]], starts, axis=0)
+    got = out["MIN_PLUS"].cpu().numpy()
+    fin = np.isfinite(ref)
+    require(np.array_equal(np.isfinite(got), fin),
+            "G1 MIN_PLUS: unreached nodes differ from the oracle")
+    ok, err_mp = close(got[fin], ref[fin], 1e-6, 1e-6)
+    require(ok, f"G1 MIN_PLUS off the float64 oracle (err {err_mp})")
+    M = host_csr(r, c, w, n)
+    ok, err_pt = close(out["PLUS_TIMES"].cpu().numpy(), M.T @ x64, 1e-5,
+                       1e-5)
+    require(ok, f"G1 PLUS_TIMES off the float64 oracle (err {err_pt})")
+    return {"k": plan.k, "err": {"MIN_PLUS": err_mp, "PLUS_TIMES": err_pt}}
+
+
+def edge_weights(host, n, tails, heads) -> np.ndarray:
+    """Stored weights of edges (tails, heads) of row-major unique host
+    entries ``(r, c, w)``; every edge must exist."""
+    r, c, w = host
+    keys = r * n + c
+    want = tails.astype(np.int64) * n + heads
+    pos = np.searchsorted(keys, want)
+    require(bool(np.all(pos < keys.size)) and bool(np.all(
+        keys[np.minimum(pos, keys.size - 1)] == want)),
+        "a predecessor edge is not an edge of the graph")
+    return w[pos]
+
+
+def phase_paths(torch, sp, dev, W, Wh, host_w, R, Rh, fw_n):
+    """G2: Bellman-Ford on W from 8 sources (edge list and RelaxPlan, with
+    predecessors) against scipy's dijkstra and a tree check; dijkstra with
+    limit and min_only; bfs_levels on R against scipy's BFS;
+    floyd_warshall on an induced subgraph of W against scipy."""
+    import scipy.sparse.csgraph as csg
+    from spsparse_torch import graph as gr
+
+    n = W.shape[0]
+    src = np.sort(np.random.default_rng(21).choice(
+        n, GRAPH_SOURCES, replace=False))
+    d, p = gr.bellman_ford(W, src, return_predecessors=True)
+    dp, pp = gr.bellman_ford(gr.prepare_relax(W), src,
+                             return_predecessors=True)
+    ref = csg.dijkstra(Wh, indices=src)
+    dh, ph = d.cpu().numpy(), p.cpu().numpy()
+    require(np.array_equal(dh, ref),
+            f"G2 bellman_ford(W) differs from scipy's dijkstra (max abs "
+            f"err {np.max(np.abs(dh - ref))})")
+    require(bool(torch.equal(dp, d)) and bool(torch.equal(pp, p))
+            and p.dtype == torch.int32,
+            "G2 bellman_ford(RelaxPlan) differs from the edge list")
+    for k, s in enumerate(src):
+        j = np.flatnonzero(np.arange(n) != s)
+        require(ph[k, s] == gr.NEG_SENTINEL and bool(np.all(ph[k, j] >= 0)),
+                "G2 predecessors: a node of the connected grid has none")
+        wt = edge_weights(host_w, n, ph[k, j], j)
+        require(np.array_equal(dh[k, ph[k, j]] + wt, dh[k, j]),
+                f"G2 tree edge off d[pred] + w = d (source {s})")
+    lim = float(np.median(ref[:2]))
+    dl, pl = gr.dijkstra(W, indices=src[:2], limit=lim,
+                         return_predecessors=True)
+    over = ref[:2] > lim
+    require(np.array_equal(dl.cpu().numpy(), np.where(over, np.inf,
+                                                      ref[:2]))
+            and np.array_equal(pl.cpu().numpy(),
+                               np.where(over, gr.NEG_SENTINEL, ph[:2])),
+            "G2 dijkstra(limit) differs")
+    dm, pm, sm = gr.dijkstra(W, indices=src, min_only=True,
+                             return_predecessors=True)
+    kbest = ref.argmin(axis=0)
+    require(np.array_equal(dm.cpu().numpy(), ref.min(axis=0))
+            and np.array_equal(sm.cpu().numpy(), src[kbest])
+            and np.array_equal(pm.cpu().numpy(), ph[kbest, np.arange(n)]),
+            "G2 dijkstra(min_only) differs")
+    lv = gr.bfs_levels(R, 0).cpu().numpy()
+    ref_lv = csg.shortest_path(Rh, method="D", unweighted=True, indices=0)
+    require(np.array_equal(lv, ref_lv), "G2 bfs_levels differs from scipy")
+    r, c, w = host_w
+    sub = (r < fw_n) & (c < fw_n)
+    Ws, Wsh = graph_of(sp, dev, fw_n, r[sub], c[sub], w[sub])
+    D = gr.floyd_warshall(Ws).cpu().numpy()
+    ok, err_fw = close(D, csg.dijkstra(Wsh), 1e-12, 0.0)
+    require(ok, f"G2 floyd_warshall off scipy (max abs err {err_fw})")
+    return {"sources": src.tolist(), "levels": int(lv[np.isfinite(lv)].max()),
+            "fw_err": err_fw, "ref": ref}
+
+
+def phase_components(torch, sp, dev, R, Rh, W, host_w, R16, R16h):
+    """G3: weak components of R and of W less a random tenth of its
+    edges (on the card), strong components of R16 (host Tarjan), against
+    scipy."""
+    import scipy.sparse.csgraph as csg
+    from spsparse_torch import graph as gr
+
+    out = {}
+    nc, lab = gr.connected_components(R)
+    ref_nc, ref_lab = csg.connected_components(Rh, connection="weak")
+    require(nc == ref_nc and np.array_equal(lab.cpu().numpy(), ref_lab),
+            f"G3 weak components of R: {nc} vs scipy {ref_nc}")
+    out["R"] = nc
+    r, c, w = host_w
+    n = W.shape[0]
+    key = np.minimum(r, c) * n + np.maximum(r, c)
+    uniq, inv = np.unique(key, return_inverse=True)
+    keep = ~(np.random.default_rng(23).random(uniq.size) < 0.1)[inv]
+    Wc, Wch = graph_of(sp, dev, n, r[keep], c[keep], w[keep])
+    nc, lab = gr.connected_components(Wc)
+    ref_nc, ref_lab = csg.connected_components(Wch, connection="weak")
+    require(nc == ref_nc and np.array_equal(lab.cpu().numpy(), ref_lab),
+            f"G3 weak components of W less a tenth: {nc} vs {ref_nc}")
+    out["W_cut"] = nc
+    nc, lab = gr.connected_components(R16, connection="strong")
+    ref_nc, ref_lab = csg.connected_components(R16h, connection="strong")
+    require(nc == ref_nc and np.array_equal(lab.cpu().numpy(),
+                                            first_occurrence(ref_lab)),
+            f"G3 strong components of R16: {nc} vs scipy {ref_nc}")
+    out["R16_strong"] = nc
+    return out
+
+
+def phase_mst(torch, sp, dev, W, Wh):
+    """G4: Boruvka's minimum_spanning_tree(W) against scipy's: the same
+    edge set, weights and total."""
+    import scipy.sparse.csgraph as csg
+    from spsparse_torch import graph as gr
+
+    n = W.shape[0]
+    T = gr.minimum_spanning_tree(W)
+    idx = T.indices[: T.nnz].cpu().numpy().astype(np.int64)
+    vals = T.vals[: T.nnz].cpu().numpy()
+    ref = csg.minimum_spanning_tree(Wh).tocoo()
+    rk = np.minimum(ref.row, ref.col).astype(np.int64) * n + np.maximum(
+        ref.row, ref.col)
+    order = np.argsort(rk)
+    require(T.nnz == ref.nnz == n - 1
+            and np.array_equal(idx[:, 0] * n + idx[:, 1], rk[order])
+            and np.array_equal(vals, ref.data[order]),
+            f"G4 MST differs from scipy's ({T.nnz} vs {ref.nnz} edges)")
+    total, ref_total = float(vals.sum()), float(ref.data.sum())
+    require(abs(total - ref_total) <= 1e-12 * ref_total,
+            f"G4 MST weight {total!r} vs scipy {ref_total!r}")
+    return {"edges": T.nnz, "weight": total, "scipy_weight": ref_total}
+
+
+def phase_laplacian(torch, sp, dev, U, Uh, W, Wh, side):
+    """G5: laplacian(U) against scipy entry for entry, through to_dia and
+    K1: L 1 = 0 exactly; Lanczos (k = 6, largest, 256 steps) over K1
+    against the grid's analytic spectrum; laplacian(W, normed=True)
+    against scipy."""
+    import scipy.sparse.csgraph as csg
+    from spsparse_torch import graph as gr
+    from spsparse_torch.ops import best_spmv, prepare_dia
+
+    n = U.shape[0]
+    L = gr.laplacian(U)
+    Lh = csg.laplacian(Uh)
+    same_as_scipy(torch, sp, L, Lh, "G5 laplacian(U)")
+    dia = sp.to_dia(L)
+    y = best_spmv(prepare_dia(dia), torch.ones(n, dtype=torch.float32,
+                                               device=dev))
+    require(bool((y == 0).all()), "G5 K1: L 1 is not exactly 0")
+    op = sp.solvers.aslinearoperator(dia)
+    v0 = torch.from_numpy(host_f32(22, n)).to(dev)
+    steps = min(LANCZOS_ITERS, n)
+    vals, vecs = sp.solvers.lanczos_eigsh(op.matvec, v0, k=EIG_K,
+                                          iters=steps, which="LA")
+    vals_h = vals.cpu().numpy().astype(np.float64)
+    s = 4 * np.sin(np.pi * np.arange(side) / (2 * side)) ** 2
+    spec = np.sort((s[:, None] + s[None, :]).ravel())
+    top = spec[-1]                          # 8 sin^2((side-1) pi / 2 side)
+    V = vecs.cpu().numpy().astype(np.float64)
+    V /= np.linalg.norm(V, axis=0)
+    res = np.linalg.norm(Lh @ V - V * vals_h, axis=0)
+    # float32 rounding: each step adds O(u ||L||) to the Ritz values
+    # (u = 2**-24, ||L|| <= 8 by Gershgorin)
+    margin = steps * 2.0 ** -24 * 8
+    # the same run in float64 on the host, from the same start; the
+    # three-term recurrence at full size (CGS2 there would take minutes),
+    # where no Ritz value converges far enough to leave a copy
+    witness = host_lanczos_top(Lh, v0.cpu().numpy().astype(np.float64),
+                               steps, EIG_K, reorth=n * steps <= 1 << 24)
+    pos = np.clip(np.searchsorted(spec, vals_h), 1, spec.size - 1)
+    gap = np.minimum(np.abs(spec[pos] - vals_h), np.abs(spec[pos - 1] -
+                                                        vals_h))
+    # Kahan: an eigenvalue lies within a unit Ritz vector's residual norm
+    require(bool(np.all(gap <= res + margin))
+            and bool(np.all(vals_h <= top + margin)),
+            f"G5 Ritz values {vals_h.tolist()} (residuals {res.tolist()}) "
+            f"outside the grid's spectrum, whose top is {top!r}")
+    # the float64 run stops short of top at full size (1.8e-4: a cluster
+    # with gaps ~3e-5), so the 1e-4 holds against it, not against top
+    require(bool(np.all(np.abs(vals_h - witness) <= 1e-4)),
+            f"G5 Ritz values {vals_h.tolist()} not within 1e-4 of the "
+            f"float64 host run's {witness.tolist()}")
+    Ln = gr.laplacian(W, normed=True)
+    same_as_scipy(torch, sp, Ln, csg.laplacian(Wh, normed=True),
+                  "G5 laplacian(W, normed)", rtol=1e-12)
+    return {"L_nnz": L.nnz, "diags": len(dia.offsets),
+            "ritz": vals_h.tolist(), "top": float(top),
+            "top_gap": float(vals_h[-1] - top), "residuals": res.tolist(),
+            "witness": witness.tolist(),
+            "witness_err": float(np.max(np.abs(vals_h - witness))),
+            "margin": margin}
+
+
+def bipartite_entries(m: int, seed: int):
+    """An m x m bipartite graph: 8 random columns a row plus a random
+    perfect matching (so a full matching exists), unique, row-major,
+    float64 weights uniform [0.5, 1.5)."""
+    rng = np.random.default_rng(seed)
+    rows = np.r_[np.repeat(np.arange(m), 8), np.arange(m)]
+    cols = np.r_[rng.integers(0, m, 8 * m), rng.permutation(m)]
+    key = unique_keys(rows * m + cols)
+    return key // m, key % m, rng.uniform(0.5, 1.5, key.size)
+
+
+def ladder_entries(m: int):
+    """A bipartite ladder whose last row is matched only by one augmenting
+    path through all m rows: row i < m meets columns m - i and m - i - 1
+    (tried in that order of increasing id), row m meets column 0 only."""
+    i = np.arange(m)
+    rows = np.r_[np.repeat(i, 2), m]
+    cols = np.r_[np.stack([m - i - 1, m - i], 1).ravel(), 0]
+    return rows, cols, np.ones(rows.size)
+
+
+def flow_entries(m: int, seed: int):
+    """A flow network of m nodes: 8 random heads a node, no self-loops,
+    unique, integer capacities uniform 1..19."""
+    rng = np.random.default_rng(seed)
+    rows = np.repeat(np.arange(m), 8)
+    key = unique_keys(rows * m + rng.integers(0, m, rows.size))
+    r, c = key // m, key % m
+    keep = r != c
+    r, c = r[keep], c[keep]
+    return r, c, rng.integers(1, 20, r.size).astype(np.float64)
+
+
+def phase_host_tier(torch, sp, dev, R16, R16h, match_n, ladder_n, flow_n,
+                    path_side):
+    """G6: BFS/DFS orders and trees on R16; maximum_bipartite_matching
+    (and a ladder that needs one augmenting path through all its rows),
+    structural_rank and min_weight_full_bipartite_matching; maximum_flow;
+    reconstruct_path and construct_dist_matrix; yen — against scipy."""
+    import scipy.sparse.csgraph as csg
+    from spsparse_torch import graph as gr
+
+    out = {}
+    for fn in ("breadth_first_order", "depth_first_order"):
+        order, pred = getattr(gr, fn)(R16, 0)
+        ro, rp = getattr(csg, fn)(R16h, 0)
+        require(np.array_equal(order, ro) and np.array_equal(pred, rp),
+                f"G6 {fn} differs from scipy")
+        out[fn] = int(order.size)
+    for fn in ("breadth_first_tree", "depth_first_tree"):
+        same_as_scipy(torch, sp, getattr(gr, fn)(R16, 0),
+                      getattr(csg, fn)(R16h, 0), f"G6 {fn}")
+    r, c, w = bipartite_entries(match_n, 24)
+    B, Bh = graph_of(sp, dev, match_n, r, c, w)
+    m = gr.maximum_bipartite_matching(B)
+    ref = csg.maximum_bipartite_matching(Bh, perm_type="column")
+    hit = np.flatnonzero(m >= 0)
+    require((m >= 0).sum() == (ref >= 0).sum()
+            and np.unique(m[hit]).size == hit.size
+            and bool(np.all(np.asarray(Bh[hit, m[hit]]).ravel() > 0)),
+            "G6 maximum_bipartite_matching: cardinality or validity")
+    require(gr.structural_rank(B) == csg.structural_rank(Bh),
+            "G6 structural_rank differs from scipy")
+    ri, ci = gr.min_weight_full_bipartite_matching(B)
+    sr, sc = csg.min_weight_full_bipartite_matching(Bh)
+    cost = float(np.asarray(Bh[ri, ci]).sum())
+    ref_cost = float(np.asarray(Bh[sr, sc]).sum())
+    require(ri.size == match_n and np.unique(ci).size == match_n
+            and abs(cost - ref_cost) <= 1e-12 * ref_cost,
+            f"G6 min_weight_full_bipartite_matching cost {cost!r} vs "
+            f"scipy {ref_cost!r}")
+    out.update(matching=int(hit.size), cost=cost)
+    lr, lc, lw = ladder_entries(ladder_n)
+    Lad, _ = graph_of(sp, dev, ladder_n + 1, lr, lc, lw)
+    t0 = time.perf_counter()
+    lm = gr.maximum_bipartite_matching(Lad)
+    out["ladder_s"] = time.perf_counter() - t0
+    require(int((lm >= 0).sum()) == ladder_n + 1,
+            "G6 ladder: the long augmenting path was not found")
+    fr, fc, fw = flow_entries(flow_n, 25)
+    F, Fh = graph_of(sp, dev, flow_n, fr, fc, fw)
+    res = gr.maximum_flow(F, 0, flow_n - 1)
+    ref_flow = csg.maximum_flow(Fh.astype(np.int32), 0, flow_n - 1)
+    fl = res.flow
+    require(fl.device == F.device, "G6 the flow left the operand's device")
+    fi = fl.indices[: fl.nnz].cpu().numpy().astype(np.int64)
+    fv = fl.vals[: fl.nnz].cpu().numpy()
+    net = (np.bincount(fi[:, 0], fv, flow_n)
+           - np.bincount(fi[:, 1], fv, flow_n))
+    require(res.flow_value == ref_flow.flow_value
+            and bool(np.all((fv >= 0) & (fv <= fw)))
+            and bool(np.all(net[1:-1] == 0)) and net[0] == res.flow_value,
+            f"G6 maximum_flow {res.flow_value} vs scipy "
+            f"{ref_flow.flow_value}, or not a flow")
+    out["flow"] = res.flow_value
+    pr, pc = grid_pattern(path_side)
+    pn = path_side * path_side
+    G, Gh = graph_of(sp, dev, pn, pr, pc, symmetric_weights(pr, pc, pn, 26))
+    dist, pred = gr.shortest_path(G, return_predecessors=True)
+    rd, rp = csg.shortest_path(Gh, method="D", return_predecessors=True)
+    pred_h = pred.cpu().numpy()
+    require(np.array_equal(dist.cpu().numpy(), rd)
+            and np.array_equal(pred_h, rp),
+            "G6 shortest_path differs from scipy")
+    same_as_scipy(torch, sp, gr.reconstruct_path(G, pred[0]),
+                  csg.reconstruct_path(Gh, rp[0]), "G6 reconstruct_path")
+    ok, err = close(gr.construct_dist_matrix(G, pred),
+                    csg.construct_dist_matrix(Gh, rp), 1e-12, 0.0)
+    require(ok, f"G6 construct_dist_matrix off scipy (err {err})")
+    costs, preds = gr.yen(G, 0, pn - 1, YEN_K, return_predecessors=True)
+    require(costs.size == YEN_K and abs(costs[0] - rd[0, -1]) <= 1e-12 *
+            rd[0, -1] and bool(np.all(np.diff(costs) >= 0)),
+            f"G6 yen costs {costs.tolist()} vs dijkstra {rd[0, -1]!r}")
+    for row in preds:
+        path, v = [pn - 1], pn - 1
+        while v != 0:
+            v = int(row[v])
+            require(v >= 0 and v not in path, "G6 yen: a path is not simple")
+            path.append(v)
+    out["yen"] = costs.tolist()
+    return out
+
+
+def phase_npz(torch, sp, dev, W, host_w, Wh):
+    """G7: save_npz(W) read by scipy unchanged; a scipy CSR and CSC file
+    read back by load_npz onto the card unchanged."""
+    import scipy.sparse as sps
+
+    r, c, w = host_w
+    with tempfile.TemporaryDirectory() as tmp:
+        p = os.path.join(tmp, "W.npz")
+        sp.io.save_npz(p, W)
+        M = sps.load_npz(p)
+        require(M.format == "coo" and M.shape == W.shape
+                and np.array_equal(M.row, r) and np.array_equal(M.col, c)
+                and np.array_equal(M.data, w),
+                "G7 scipy.sparse.load_npz(save_npz(W)) differs")
+        for fmt in ("csr", "csc"):
+            q = os.path.join(tmp, f"W_{fmt}.npz")
+            sps.save_npz(q, Wh.asformat(fmt), compressed=False)
+            A = sp.io.load_npz(q, device=dev)
+            require(A.device.type == torch.device(dev).type,
+                    "G7 load_npz left the requested device")
+            same_as_scipy(torch, sp, A, Wh, f"G7 load_npz({fmt})")
+    return {"nnz": W.nnz}
+
+
+def run_cli(args: list, extra: list) -> str:
+    """``spsparse_torch.tools.__main__.main(args + extra)`` in process; its
+    standard output."""
+    import contextlib
+    import io
+    from spsparse_torch.tools.__main__ import main as cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli(args + extra)
+    require(rc == 0, f"G8 CLI {args[0]} returned {rc}")
+    return buf.getvalue()
+
+
+def cli_json(text: str) -> dict:
+    return json.loads(text[: text.rindex("}") + 1])
+
+
+def host_lanczos_top(A, v, steps: int, k: int,
+                     reorth: bool = True) -> np.ndarray:
+    """The ``k`` largest Ritz values, ascending, of ``steps`` Lanczos steps
+    from ``v`` in float64 numpy on the host, an independent replay of a run
+    on the card: with full (CGS2) reorthogonalization, the algorithm of the
+    port's ``lanczos_eigsh``, or (``reorth=False``, for long runs) the plain
+    three-term recurrence, whose loss of orthogonality only adds copies of
+    converged values."""
+    alpha, beta = np.zeros(steps), np.zeros(steps)
+    if reorth:
+        V = np.zeros((steps + 1, v.size))
+        V[0] = v / np.linalg.norm(v)
+        for j in range(steps):
+            w = A @ V[j]
+            alpha[j] = V[j] @ w
+            for _ in range(2):
+                w -= (V[:j + 1] @ w) @ V[:j + 1]
+            beta[j] = np.linalg.norm(w)
+            V[j + 1] = w / beta[j]
+    else:
+        prev, cur, b = np.zeros(v.size), v / np.linalg.norm(v), 0.0
+        for j in range(steps):
+            w = A @ cur - b * prev
+            alpha[j] = w @ cur
+            w -= alpha[j] * cur
+            beta[j] = b = np.linalg.norm(w)
+            prev, cur = cur, w / b
+    T = np.diag(alpha) + np.diag(beta[:-1], 1) + np.diag(beta[:-1], -1)
+    return np.linalg.eigvalsh(T)[-k:]
+
+
+def phase_cli(torch, sp, dev, W, Wh, side, reorder_n, g2_ref, mst):
+    """G8: the CLI in process, on the card by default: info, convert and
+    stats on a small file; solve and eigs on the Poisson operator; reorder
+    on a scrambled band; graph cc/sssp/mst/laplacian on W against the
+    G2-G5 oracles; one subprocess of ``python3 -m spsparse_torch.tools
+    info``."""
+    import scipy.sparse.csgraph as csg
+
+    n = W.shape[0]
+    out = {}
+    # no --device on the card, so that the CLI's default (cuda) is what
+    # runs; a CPU rehearsal names the CPU
+    extra = ["--device", "cpu"] if torch.device(dev).type == "cpu" else []
+    with tempfile.TemporaryDirectory() as tmp:
+        f = lambda name: os.path.join(tmp, name)  # noqa: E731
+        small = sp.SparseCOO.from_arrays(np.array([[1, 3], [4, 4]]),
+                                         np.array([2.0, 5.0]), (10, 12),
+                                         device=dev)
+        sp.io.save_netcdf(f("m.nc"), {"M": small})
+        text = run_cli(["info", f("m.nc")], extra)
+        require("spsparse arrays: M" in text, "G8 info: no array listed")
+        text = run_cli(["convert", f("m.nc"), f("m5.nc"), "--version", "5"],
+                       extra)
+        st = cli_json(run_cli(["stats", f("m5.nc"), "M"], extra))
+        require(st["nnz"] == 2 and st["shape"] == [10, 12]
+                and st["bandwidth"] == 2, f"G8 stats {st}")
+        pr, pc, pv = poisson_entries(side)
+        P = sp.SparseCOO.from_arrays(np.stack([pr, pc], 1),
+                                     pv.astype(np.float64), (n, n),
+                                     device=dev)
+        sp.io.save_netcdf(f("P.nc"), {"P": P})
+        res = cli_json(run_cli(["solve", f("P.nc"), "P", "--method", "cg",
+                                "--precond", "jacobi", "--iters", "100",
+                                "--out", f("x.nc")], extra))
+        x = sp.io.load_netcdf(f("x.nc"), "x", device=dev).to_dense()
+        Ph = host_csr(pr, pc, pv, n)
+        true_res = float(np.linalg.norm(1.0 - Ph @ x.cpu().numpy()))
+        # the recursive residual drifts from the true one by rounding,
+        # ~1e-10 of ||b|| = sqrt(n) once converged
+        require(abs(res["residual_norm"] - true_res)
+                <= 1e-6 * true_res + 1e-10 * np.sqrt(n),
+                f"G8 solve: residual {res['residual_norm']!r} vs float64 "
+                f"{true_res!r}")
+        out["solve_residual"] = res["residual_norm"]
+        ev = cli_json(run_cli(["eigs", f("P.nc"), "P", "--k", "4"], extra))
+        vals = np.asarray(ev["values"])
+        # the CLI's run replayed on the host: its start (default_rng(0)
+        # normal), its 48 steps, float64 numpy on P
+        ref = host_lanczos_top(Ph, np.random.default_rng(0).standard_normal(
+            n), CLI_EIGS_STEPS, 4)
+        require(vals.size == 4 and bool(np.allclose(vals, ref,
+                                                    rtol=CLI_EIGS_RTOL,
+                                                    atol=0)),
+                f"G8 eigs values {vals.tolist()} vs float64 numpy "
+                f"{ref.tolist()}")
+        out["eigs"] = vals.tolist()
+        out["eigs_err"] = float(np.max(np.abs(vals - ref) / ref))
+        br, bc, bv = banded_entries(reorder_n)
+        perm = np.random.default_rng(27).permutation(reorder_n)
+        inv = np.argsort(perm)
+        S = sp.SparseCOO.from_arrays(np.stack([inv[br], inv[bc]], 1),
+                                     bv.astype(np.float64),
+                                     (reorder_n, reorder_n), device=dev)
+        sp.io.save_netcdf(f("band.nc"), {"B": S})
+        ro = cli_json(run_cli(["reorder", f("band.nc"), f("rcm.nc"), "B"],
+                              extra))
+        back = sp.io.load_netcdf(f("rcm.nc"), "B", device=dev)
+        require(ro["bandwidth_before"] > reorder_n // 4
+                and ro["bandwidth_after"] <= 2 * BAND
+                and sp.bandwidth(back) == ro["bandwidth_after"],
+                f"G8 reorder {ro}")
+        out["reorder"] = [ro["bandwidth_before"], ro["bandwidth_after"]]
+        sp.io.save_netcdf(f("W.nc"), {"W": W})
+        cc = cli_json(run_cli(["graph", f("W.nc"), "W", "--op", "cc"], extra))
+        require(cc["n_components"] == 1 and cc["largest"] == n,
+                f"G8 graph cc {cc}")
+        ss = cli_json(run_cli(["graph", f("W.nc"), "W", "--op", "sssp",
+                               "--source", str(g2_ref["source"])], extra))
+        d0 = g2_ref["dist"]
+        require(ss["reachable"] == n and ss["max_dist"] == float(d0.max())
+                and abs(ss["mean_dist"] - d0.mean()) <= 1e-12 * d0.mean(),
+                f"G8 graph sssp {ss}")
+        ms = cli_json(run_cli(["graph", f("W.nc"), "W", "--op", "mst"], extra))
+        require(ms["tree_edges"] == n - 1
+                and abs(ms["tree_weight"] - mst["scipy_weight"])
+                <= 1e-12 * mst["scipy_weight"], f"G8 graph mst {ms}")
+        la = cli_json(run_cli(["graph", f("W.nc"), "W", "--op", "laplacian",
+                               "--out", f("L.nc")], extra))
+        Lref = csg.laplacian(Wh)
+        require(la["laplacian_nnz"] == Lref.nnz, f"G8 graph laplacian {la}")
+        # the degrees are sums of float64 weights (order may differ)
+        same_as_scipy(torch, sp, sp.io.load_netcdf(f("L.nc"), "W.laplacian",
+                                                   device=dev),
+                      Lref, "G8 graph laplacian --out", rtol=1e-12)
+        cmd = [sys.executable, "-m", "spsparse_torch.tools", "info",
+               f("m.nc")] + extra
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=300,
+                              cwd=os.path.dirname(os.path.abspath(__file__)))
+        require(proc.returncode == 0 and "spsparse arrays: M" in proc.stdout,
+                f"G8 python -m spsparse_torch.tools info: rc "
+                f"{proc.returncode}, {proc.stderr[-400:]}")
+    return out
+
+
+def graph_path(torch, sp, dev, side=POISSON_SIDE, n=N, host_n=HOST_N,
+               fw_n=FW_N, match_n=MATCH_N, ladder_n=LADDER_N, flow_n=FLOW_N,
+               path_side=PATH_SIDE, reorder_n=REORDER_N) -> dict:
+    """Phases G1-G8 on ``dev``: semiring SpMV, shortest paths, components,
+    MST, the Laplacian through K1 and Lanczos, the host tier, npz files and
+    the CLI, on W and U (the ``side`` x ``side`` grid graph, weighted
+    float64 and unweighted float32) and R (config 2c's digraph of ``n``
+    nodes); the host tier on smaller graphs. Each phase logs its host
+    wall, the rounds and host syncs of the graph tier's device loops, and
+    the path's peak device memory so far."""
+    st: dict = {}
+
+    def done(phase, msg, t0):
+        rounds, syncs = graph_events(sp, st, phase)
+        phase_done(torch, dev, f"{phase} {msg}; {rounds} rounds, {syncs} "
+                   f"syncs", t0, st)
+
+    sp.utils.enable_event_log(True)
+    try:
+        t0 = time.perf_counter()
+        gn = side * side
+        wr, wc = grid_pattern(side)
+        host_w = (wr, wc, symmetric_weights(wr, wc, gn, 28))
+        W, Wh = graph_of(sp, dev, gn, *host_w)
+        U, Uh = graph_of(sp, dev, gn, wr, wc, np.ones(wr.size, np.float32))
+        host_r = random_digraph(n)
+        R, Rh = graph_of(sp, dev, n, *host_r)
+        R16, R16h = graph_of(sp, dev, host_n, *random_digraph(host_n))
+        done("G0", f"graphs: W and U {W.nnz} entries ({side} x {side} "
+             f"grid), R {R.nnz}, R16 {R16.nnz}", t0)
+        t0 = time.perf_counter()
+        g1 = phase_semiring(torch, sp, dev, R, host_r)
+        done("G1", f"semiring SpMV: six semirings on R equal to relax (K = "
+             f"{g1['k']}); float64 oracle err {g1['err']}", t0)
+        t0 = time.perf_counter()
+        g2 = phase_paths(torch, sp, dev, W, Wh, host_w, R, Rh, fw_n)
+        done("G2", f"shortest paths: Bellman-Ford from {GRAPH_SOURCES} "
+             f"sources equal to scipy's dijkstra, tree checked; BFS on R "
+             f"{g2['levels']} levels; floyd_warshall ({fw_n} nodes) err "
+             f"{g2['fw_err']!r}", t0)
+        t0 = time.perf_counter()
+        g3 = phase_components(torch, sp, dev, R, Rh, W, host_w, R16, R16h)
+        done("G3", f"components: {g3}", t0)
+        t0 = time.perf_counter()
+        g4 = phase_mst(torch, sp, dev, W, Wh)
+        done("G4", f"MST: {g4['edges']} edges, weight {g4['weight']!r} "
+             f"(scipy {g4['scipy_weight']!r})", t0)
+        t0 = time.perf_counter()
+        g5 = phase_laplacian(torch, sp, dev, U, Uh, W, Wh, side)
+        done("G5", f"Laplacian: L {g5['L_nnz']} entries, {g5['diags']} "
+             f"diagonals, L 1 = 0 through K1; Lanczos Ritz values "
+             f"{g5['ritz']}, the top {g5['top_gap']!r} off {g5['top']!r}, "
+             f"residuals {g5['residuals']}; float64 host run "
+             f"{g5['witness']}, max difference {g5['witness_err']!r} "
+             f"(ceiling margin {g5['margin']!r})", t0)
+        t0 = time.perf_counter()
+        g6 = phase_host_tier(torch, sp, dev, R16, R16h, match_n, ladder_n,
+                             flow_n, path_side)
+        done("G6", f"host tier: {g6}", t0)
+        t0 = time.perf_counter()
+        phase_npz(torch, sp, dev, W, host_w, Wh)
+        done("G7", f"npz: W ({W.nnz} entries) through save_npz/scipy, scipy "
+             f"CSR and CSC through load_npz", t0)
+        t0 = time.perf_counter()
+        g8 = phase_cli(torch, sp, dev, W, Wh, side, reorder_n,
+                       {"source": int(g2["sources"][0]),
+                        "dist": g2["ref"][0]}, g4)
+        done("G8", f"CLI: {g8}", t0)
+    finally:
+        sp.utils.enable_event_log(False)
+    st.update(laplacian=g5, sizes={
+        "W": W.nnz, "R": R.nnz, "R16": R16.nnz, "fw_n": fw_n,
+        "match_n": match_n, "ladder_n": ladder_n, "flow_n": flow_n,
+        "path_side": path_side, "reorder_n": reorder_n},
+        ladder_s=g6["ladder_s"])
+    return st
+
+
 def time_ms(torch, fn, *, reps: int = 15, inner: int = 10,
             warmup: int = 3) -> list[float]:
     """Per-call milliseconds of ``reps`` CUDA-event-timed runs of ``inner``
@@ -2554,24 +3315,32 @@ def host_issue_us(torch, fn, *, calls: int = 100, bursts: int = 15) -> float:
     return float(np.median(out))
 
 
-def device_ms(torch, fn, calls: int = 10) -> float:
+def device_ms(torch, fn, what: str, calls: int = 10,
+              tries: int = 3) -> float | None:
     """Device milliseconds a call of ``fn``: the CUDA kernels' time under
     ``torch.profiler`` over ``calls`` calls (``tests_gpu/profile_kernels.py``'s
-    method)."""
+    method). A profile that caught no CUDA kernel is no measurement: it is
+    taken again, up to ``tries`` profiles, and if none caught one the
+    result is None (printed as null), never 0."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    us = 0.0
-    for e in prof.key_averages():
-        if "CUDA" in str(getattr(e, "device_type", "")):
-            t = getattr(e, "device_time_total", None)
-            us += e.cuda_time_total if t is None else t
-    return us / calls / 1e3
+    for attempt in range(tries):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us = 0.0
+        for e in prof.key_averages():
+            if "CUDA" in str(getattr(e, "device_type", "")):
+                t = getattr(e, "device_time_total", None)
+                us += e.cuda_time_total if t is None else t
+        if us > 0:
+            return us / calls / 1e3
+        log(f"device_ms: profile {attempt + 1} of {tries} caught no CUDA "
+            f"kernel of {what}")
+    return None
 
 
 def compare_times(torch, kernel, plain, **kw) -> tuple[float, float]:
@@ -3071,13 +3840,14 @@ def unstructured_timings(torch, un, launches: dict) -> tuple[list, dict]:
     row("segmented_row_sums", "config 2c (CSR products)", ms, plain_ms,
         4 * csr.nnz + 4 * (n + 1) + 4 * n, csr.nnz, seg["err"]["k10"],
         seg_lib_ms, n=n, nnz=csr.nnz, library_call="torch.segment_reduce",
-        library_csr_spmv_ms=lib_ms, device_ms=device_ms(torch, k10),
+        library_csr_spmv_ms=lib_ms,
+        device_ms=device_ms(torch, k10, "segmented_row_sums"),
         host_issue_us=host_issue_us(torch, k10),
         # The same sums over the live prefix of prod (no tiles past nnz),
         # as spmv_csr_segsum hands it to K10.
         device_ms_live=device_ms(torch, lambda: segmented_row_sums(
             prod[:csr.nnz], csr.row_ptr, nrows=n, rows_per_block=256,
-            entries_per_block=1024)))
+            entries_per_block=1024), "segmented_row_sums (live prefix)"))
     ms, plain_ms = compare_times(torch, lambda: shuffle_gather(prep, x),
                                  lambda: shuffle_gather_reference(prep, x),
                                  reps=7, inner=5)
@@ -3226,6 +3996,7 @@ def main() -> int:
                                     sort_blocks)
     from spsparse_torch.solvers import cg_solve
 
+    t_script = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = "cuda"
@@ -3337,7 +4108,8 @@ def main() -> int:
                          **KERNELS["spmv_dia_stream"],
                          launches=launches["spmv_dia_stream"],
                          max_abs_err=err, ms=ms,
-                         device_ms=device_ms(torch, call),
+                         device_ms=device_ms(torch, call,
+                                             f"spmv_dia_stream {dname}"),
                          host_issue_us=host_issue_us(torch, call),
                          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                          library_ms=lib_ms, matrix=matrix, **extra))
@@ -3350,11 +4122,13 @@ def main() -> int:
                           2 * nnz)
     # Per iteration; the library yardstick is one SpMV, one iteration. The
     # host issues one call (64 launches) a chain.
+    chain_dev = device_ms(torch, chain, "spmv_dia_chain")
     rows.append(dict(name="spmv_dia_chain", dtype="f32",
                      **KERNELS["spmv_dia_chain"],
                      launches=launches["spmv_dia_chain"],
                      max_abs_err=state["chain_err"], ms=ms / CHAIN_ITERS,
-                     device_ms=device_ms(torch, chain) / CHAIN_ITERS,
+                     device_ms=(None if chain_dev is None
+                                else chain_dev / CHAIN_ITERS),
                      host_issue_us=host_issue_us(torch, chain, calls=10,
                                                  bursts=7),
                      plain_ms=plain_ms / CHAIN_ITERS, bound_ms=b_ms,
@@ -3422,6 +4196,17 @@ def main() -> int:
         if row["name"] in ("spmv_dia_stream", "spmm_dia_mrhs"):
             row["launches_solver_path"] = solver_counts[row["name"]]
 
+    torch.cuda.reset_peak_memory_stats()
+    graph, graph_counts = run_path(torch, wrappers, graph_path, torch, sp,
+                                   dev)
+    log(f"graph path kernel launches: {graph_counts}; peak device memory "
+        f"{torch.cuda.max_memory_allocated()} bytes")
+    require(graph_counts["spmv_dia_stream"] > 0,
+            "kernel spmv_dia_stream was not launched on the graph path")
+    for row in rows:
+        if row["name"] == "spmv_dia_stream":
+            row["launches_graph_path"] = graph_counts["spmv_dia_stream"]
+
     for row in rows:
         print(json.dumps({
             "timing": row["name"], "dtype": row["dtype"],
@@ -3467,6 +4252,17 @@ def main() -> int:
                       "triangular_sweeps": solver["direct"]["sweeps"],
                       "k1_launches": solver_counts["spmv_dia_stream"],
                       "k3_launches": solver_counts["spmm_dia_mrhs"],
+                      "device": card, "nvidia_smi": smi}), flush=True)
+    print(json.dumps({"timing": "graph path, phases G1-G8",
+                      "wall_s": graph["wall_s"],
+                      "peak_bytes": graph["peak_bytes"],
+                      "rounds": graph["rounds"], "syncs": graph["syncs"],
+                      "sizes": graph["sizes"],
+                      "ladder_host_s": graph["ladder_s"],
+                      "lanczos_top_gap": graph["laplacian"]["top_gap"],
+                      "lanczos_residuals": graph["laplacian"]["residuals"],
+                      "k1_launches": graph_counts["spmv_dia_stream"],
+                      "script_wall_s": time.perf_counter() - t_script,
                       "device": card, "nvidia_smi": smi}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

@@ -5,8 +5,10 @@ duplicate-consolidating sort, CSR/ELL/DIA views, the diag-scaled sparse
 multiply chain, SpMV/SpMM over DIA, BSR, tiled and prepared general
 operands, SpGEMM, unstructured SpMV (the shuffle layout, the CSR segmented
 sum), the bitonic block sort, sorted-merge joins, accumulators,
-constructors, elementwise algebra, RCM reordering, scipy interop, and
-NetCDF I/O (classic and NetCDF-4) — on PyTorch tensors, with the
+constructors, elementwise algebra, RCM reordering, scipy interop, the
+``scipy.sparse.csgraph`` tier (semiring SpMV), NetCDF I/O (classic and
+NetCDF-4), scipy ``.npz`` files and the command line tools — on PyTorch
+tensors, with the
 TPU's Pallas kernels rewritten as hand-written CUDA kernels for Hopper
 (``spsparse_torch/csrc``, built by :mod:`spsparse_torch.backend` on first
 use). Every kernel has a plain PyTorch version beside it, taken for CPU
@@ -79,6 +81,7 @@ from .core import (
     default_device,
 )
 
-from . import backend, convert, core, io, ops, solvers, utils  # noqa: E402
+from . import (backend, convert, core, graph, io, ops, solvers,  # noqa: E402
+               tools, utils)
 
 __version__ = "0.1.0"

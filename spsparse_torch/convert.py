@@ -20,6 +20,8 @@ the JAX side is plain numpy (``np.asarray`` of a JAX array).
 * :func:`prepared_shuffle_from_jax` — the unstructured SpMV's shuffle
   layout, field for field (the port's arrays are the JAX package's), plus
   the slot-order arrays kernel K11 reads, rebuilt from the gather batches.
+* :func:`relax_plan_from_jax` — the graph tier's ELL-by-head
+  ``RelaxPlan``, field for field.
 * :func:`tiled_blocks_from_jax`, :func:`tiled_gemm_plan_from_jax`,
   :func:`window_gemm_plan_from_jax` and :func:`esc_plan_from_jax` — the
   SpGEMM blocks and plans, field for field (the tiled and window plans are
@@ -46,6 +48,7 @@ from .core.coo import SparseCOO
 from .core.device import resolve_device
 from .core.dia import SparseDIA
 from .core.tiled import SparseTiledCOO
+from .graph.semiring import RelaxPlan
 from .ops.dia_stream import PreparedDIA
 from .ops.general import PreparedGather, PreparedGatherEll, PreparedGeneral
 from .ops.spgemm_planned import EscPlan
@@ -62,7 +65,7 @@ __all__ = ["coo_from_numpy", "coo_to_numpy", "dia_from_numpy",
            "prepared_tiled_window_from_jax", "prepared_general_from_jax",
            "tiled_blocks_from_jax", "tiled_gemm_plan_from_jax",
            "window_gemm_plan_from_jax", "esc_plan_from_jax",
-           "prepared_shuffle_from_jax"]
+           "prepared_shuffle_from_jax", "relax_plan_from_jax"]
 
 Tensor = torch.Tensor
 
@@ -251,3 +254,10 @@ def prepared_shuffle_from_jax(prep, *, device=None) -> PreparedShuffleSpMV:
     return PreparedShuffleSpMV(
         **arrays, ell_cols=ell_cols, ell_vals=ell_vals,
         n_vrows=int(prep.n_vrows), ell_k=int(prep.ell_k), shape=_shape(prep))
+
+
+def relax_plan_from_jax(plan, *, device=None) -> RelaxPlan:
+    """The JAX package's ``RelaxPlan`` (``tails``, ``weights``, ``pad``,
+    ``n``), field for field, on ``device``."""
+    return RelaxPlan(**_fields(plan, ("tails", "weights", "pad"), device),
+                     n=int(plan.n))

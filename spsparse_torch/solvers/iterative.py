@@ -443,7 +443,9 @@ def lanczos_bounds(matvec: MatVec, v0: Tensor, *, iters: int = 30,
         alive = alive_next
     T = (torch.diag(alpha) + torch.diag(beta[:-1], 1)
          + torch.diag(beta[:-1], -1))
-    ritz = torch.linalg.eigvalsh(T)
+    # in float64: CUDA's float32 eigvalsh is not accurate to float32
+    # (see spectral._eigh)
+    ritz = torch.linalg.eigvalsh(T.double()).to(T.dtype)
     return ritz[0] / safety, ritz[-1] * safety
 
 

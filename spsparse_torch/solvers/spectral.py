@@ -15,7 +15,8 @@ algorithms step for step:
 * the small dense problems (the tridiagonal, the bidiagonal SVD, LOBPCG's
   ``3k x 3k`` Rayleigh-Ritz) use ``torch.linalg`` on the operand's device,
   as the JAX package uses ``jnp.linalg`` outside any kernel; the symmetric
-  ones are symmetrized first, as ``jnp.linalg.eigh`` does;
+  ones are symmetrized first, as ``jnp.linalg.eigh`` does, and solved in
+  float64 (CUDA's float32 eigh is not accurate to float32);
 * selections that ``jax.lax.top_k`` makes (ties to the lower index) use a
   stable sort, so they pick the same indices.
 
@@ -43,8 +44,16 @@ def _nz(d: Tensor) -> Tensor:
 
 
 def _eigh(M: Tensor):
-    """``jnp.linalg.eigh``: the symmetrized matrix's ascending eigenpairs."""
-    return torch.linalg.eigh((M + M.mT) / 2)
+    """``jnp.linalg.eigh``: the symmetrized matrix's ascending eigenpairs,
+    solved in float64 and returned in ``M``'s dtype. CUDA's float32 eigh
+    is not accurate to float32: on an H100 it put the top eigenvalue of a
+    256-step Lanczos tridiagonal (norm 8) 4.4e-4 above the float64 one,
+    above the operator's whole spectrum (``tests_gpu/lanczos_top_gap.py``)."""
+    S = (M + M.mT) / 2
+    if S.dtype == torch.float64 or S.dtype.is_complex:
+        return torch.linalg.eigh(S)
+    w, U = torch.linalg.eigh(S.double())
+    return w.to(M.dtype), U.to(M.dtype)
 
 
 def _top_k(x: Tensor, k: int) -> tuple[Tensor, Tensor]:

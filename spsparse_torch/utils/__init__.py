@@ -1,5 +1,7 @@
 """Utilities: profiler ranges and the host event log."""
 
-from .trace import traced, trace_scope, enable_event_log, get_event_log
+from .trace import (traced, trace_scope, enable_event_log, get_event_log,
+                    log_event)
 
-__all__ = ["traced", "trace_scope", "enable_event_log", "get_event_log"]
+__all__ = ["traced", "trace_scope", "enable_event_log", "get_event_log",
+           "log_event"]

@@ -15,7 +15,8 @@ from typing import Any, Callable
 
 import torch
 
-__all__ = ["traced", "trace_scope", "enable_event_log", "get_event_log"]
+__all__ = ["traced", "trace_scope", "enable_event_log", "get_event_log",
+           "log_event"]
 
 _EVENTS: list | None = None
 
@@ -28,6 +29,13 @@ def enable_event_log(on: bool = True) -> None:
 
 def get_event_log() -> list:
     return list(_EVENTS or [])
+
+
+def log_event(op: str, **meta) -> None:
+    """Record one host-side event (no profiler range) while the log is on:
+    the graph tier's loops log their rounds and host syncs here."""
+    if _EVENTS is not None:
+        _EVENTS.append({"op": op, **meta})
 
 
 @contextlib.contextmanager

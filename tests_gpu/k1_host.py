@@ -42,6 +42,12 @@ from spsparse_torch.ops import spmv_dia_stream  # noqa: E402
 from spsparse_torch.ops import dia_stream as dia_mod  # noqa: E402
 
 
+def us_or_none(ms):
+    """Microseconds of a ``cs.device_ms`` reading; None stays None (the
+    profiler caught no kernel)."""
+    return None if ms is None else 1e3 * ms
+
+
 def parts(prep, x):
     """``(the bare ctypes call, {part: function})``: the wrapper's parts,
     each to be timed on the host clock."""
@@ -120,8 +126,8 @@ def main() -> int:
                 cs.time_ms(torch, routed))),
             "events ms of the bare ctypes call, 10 calls a run": float(
                 np.median(cs.time_ms(torch, raw))),
-            "device us a call (torch.profiler)": 1e3 * cs.device_ms(
-                torch, call),
+            "device us a call (torch.profiler)": us_or_none(cs.device_ms(
+                torch, call, "spmv_dia_stream")),
             "host us a call, spmv_dia_stream": cs.host_issue_us(torch, call),
             "host us a call, best_spmv": cs.host_issue_us(torch, routed),
             "host us a part": {k: cs.host_issue_us(torch, fn)
