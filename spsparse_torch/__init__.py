@@ -7,7 +7,9 @@ operands, SpGEMM, unstructured SpMV (the shuffle layout, the CSR segmented
 sum), the bitonic block sort, sorted-merge joins, accumulators,
 constructors, elementwise algebra, RCM reordering, scipy interop, the
 ``scipy.sparse.csgraph`` tier (semiring SpMV), NetCDF I/O (classic and
-NetCDF-4), scipy ``.npz`` files and the command line tools — on PyTorch
+NetCDF-4, and sharded checkpoints), scipy ``.npz`` files, the command line
+tools and the distributed layer (row-partitioned operands over a mesh of
+partitions on one device or one ``torch.distributed`` rank each) — on PyTorch
 tensors, with the
 TPU's Pallas kernels rewritten as hand-written CUDA kernels for Hopper
 (``spsparse_torch/csrc``, built by :mod:`spsparse_torch.backend` on first
@@ -81,7 +83,7 @@ from .core import (
     default_device,
 )
 
-from . import (backend, convert, core, graph, io, ops, solvers,  # noqa: E402
-               tools, utils)
+from . import (backend, convert, core, dist, graph, io, ops,  # noqa: E402
+               solvers, tools, utils)
 
 __version__ = "0.1.0"

@@ -22,6 +22,13 @@ the JAX side is plain numpy (``np.asarray`` of a JAX array).
   the slot-order arrays kernel K11 reads, rebuilt from the gather batches.
 * :func:`relax_plan_from_jax` — the graph tier's ELL-by-head
   ``RelaxPlan``, field for field.
+* :func:`row_partitioned_csr_from_jax`,
+  :func:`row_partitioned_bucketed_from_jax`,
+  :func:`row_partitioned_footprint_from_jax`,
+  :func:`dist_tiled_gemm_plan_from_jax` and
+  :func:`dist_block_jacobi_from_jax` — the distributed layouts, field for
+  field (the port's arrays are the JAX package's), so that one layout
+  feeds both packages.
 * :func:`tiled_blocks_from_jax`, :func:`tiled_gemm_plan_from_jax`,
   :func:`window_gemm_plan_from_jax` and :func:`esc_plan_from_jax` — the
   SpGEMM blocks and plans, field for field (the tiled and window plans are
@@ -48,6 +55,10 @@ from .core.coo import SparseCOO
 from .core.device import resolve_device
 from .core.dia import SparseDIA
 from .core.tiled import SparseTiledCOO
+from .dist.partition import RowPartitionedBucketed, RowPartitionedCSR
+from .dist.precond import DistBlockJacobi
+from .dist.spgemm_tiled import DistTiledGemmPlan
+from .dist.spmv_a2a import RowPartitionedFootprint
 from .graph.semiring import RelaxPlan
 from .ops.dia_stream import PreparedDIA
 from .ops.general import PreparedGather, PreparedGatherEll, PreparedGeneral
@@ -65,7 +76,11 @@ __all__ = ["coo_from_numpy", "coo_to_numpy", "dia_from_numpy",
            "prepared_tiled_window_from_jax", "prepared_general_from_jax",
            "tiled_blocks_from_jax", "tiled_gemm_plan_from_jax",
            "window_gemm_plan_from_jax", "esc_plan_from_jax",
-           "prepared_shuffle_from_jax", "relax_plan_from_jax"]
+           "prepared_shuffle_from_jax", "relax_plan_from_jax",
+           "row_partitioned_csr_from_jax",
+           "row_partitioned_bucketed_from_jax",
+           "row_partitioned_footprint_from_jax",
+           "dist_tiled_gemm_plan_from_jax", "dist_block_jacobi_from_jax"]
 
 Tensor = torch.Tensor
 
@@ -261,3 +276,41 @@ def relax_plan_from_jax(plan, *, device=None) -> RelaxPlan:
     ``n``), field for field, on ``device``."""
     return RelaxPlan(**_fields(plan, ("tails", "weights", "pad"), device),
                      n=int(plan.n))
+
+
+def row_partitioned_csr_from_jax(part, *, device=None) -> RowPartitionedCSR:
+    """The port's :class:`RowPartitionedCSR` holding a JAX one's arrays."""
+    return RowPartitionedCSR(
+        **_fields(part, ("row_ptr", "cols", "vals", "nnz"), device),
+        shape=_shape(part))
+
+
+def row_partitioned_bucketed_from_jax(part, *,
+                                      device=None) -> RowPartitionedBucketed:
+    return RowPartitionedBucketed(
+        **_fields(part, ("rows", "cols", "vals", "nnz"), device),
+        shape=_shape(part), rows_local=int(part.rows_local),
+        blk_len=int(part.blk_len))
+
+
+def row_partitioned_footprint_from_jax(part, *,
+                                       device=None) -> RowPartitionedFootprint:
+    return RowPartitionedFootprint(
+        **_fields(part, ("row_ptr", "cols_fp", "vals", "nnz", "req",
+                         "req_n"), device),
+        shape=_shape(part), blk_len=int(part.blk_len))
+
+
+def dist_tiled_gemm_plan_from_jax(plan, *, device=None) -> DistTiledGemmPlan:
+    """The JAX ``DistTiledGemmPlan``: tile stacks on ``device``, pair and
+    coordinate tables as host numpy (as both packages hold them)."""
+    return DistTiledGemmPlan(
+        **_fields(plan, ("a_blocks", "b_blocks"), device),
+        **_numpy_fields(plan, ("pa", "pb", "oid", "out_tile_row",
+                               "out_tile_col")),
+        out_shape=tuple(int(s) for s in plan.out_shape),
+        rows_local=int(plan.rows_local))
+
+
+def dist_block_jacobi_from_jax(pre, *, device=None) -> DistBlockJacobi:
+    return DistBlockJacobi(**_fields(pre, ("inv",), device))

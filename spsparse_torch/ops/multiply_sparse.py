@@ -86,35 +86,36 @@ def expansion_size(a_inner_cols: Tensor, a_live: Tensor, b_csr: SparseCSR,
                    sj_pres: Tensor | None = None) -> int:
     """Exact ESC expansion size: over live A entries, the length of the B
     row at the entry's inner index (zero where ``scalej`` lacks it)."""
-    return int(_product_counts(a_inner_cols, a_live, b_csr.row_ptr,
-                               sj_pres).sum())
+    row_len = b_csr.row_ptr[1:] - b_csr.row_ptr[:-1]
+    return int(_product_counts(a_inner_cols, a_live, row_len, sj_pres).sum())
 
 
-def _product_counts(k_a, a_live, row_ptr, sj_pres):
-    nrows_b = row_ptr.numel() - 1
-    row_len = (row_ptr[1:] - row_ptr[:-1]).long()
+def _product_counts(k_a, a_live, row_len, sj_pres):
+    nrows_b = row_len.numel()
     if nrows_b == 0:
         return torch.zeros_like(k_a, dtype=torch.long)
     k = k_a.long().clamp(0, nrows_b - 1)
-    cnt = torch.where(a_live & (k_a < nrows_b), row_len[k], 0)
+    cnt = torch.where(a_live & (k_a < nrows_b), row_len.long()[k], 0)
     if sj_pres is not None:
         cnt = torch.where(sj_pres[k_a.long().clamp_max(sj_pres.numel() - 1)],
                           cnt, 0)
     return cnt
 
 
-def expand_products_raw(i_a, k_a, v_a, a_live, row_ptr, b_cols, b_vals,
-                        sj_pres=None, sj_val=None,
+def expand_products_raw(i_a, k_a, v_a, a_live, row_start, row_len, b_cols,
+                        b_vals, sj_pres=None, sj_val=None,
                         expand_cap: int | None = None):
     """Enumerate every (A entry) x (B-row entry) product.
 
-    ``row_ptr`` is B's CSR row pointer over ``b_cols``/``b_vals``. Returns
-    ``(i, j, v)`` of the first ``expand_cap`` products (all by default) in
-    stream order (i, k, j) for an A sorted row-major.
+    ``row_start``/``row_len`` say where B's row ``k`` lives inside
+    ``b_cols``/``b_vals`` (a CSR, or any padded layout: the distributed
+    SpGEMMs pass gathered block-padded buffers). Returns ``(i, j, v)`` of
+    the first ``expand_cap`` products (all by default) in stream order
+    (i, k, j) for an A sorted row-major.
     """
     v_a = torch.where(a_live, v_a, torch.zeros((), dtype=v_a.dtype,
                                                device=v_a.device))
-    cnt = _product_counts(k_a, a_live, row_ptr, sj_pres)
+    cnt = _product_counts(k_a, a_live, row_len, sj_pres)
     if sj_pres is not None:
         k = k_a.long().clamp_max(sj_val.numel() - 1)
         kp = sj_pres[k]
@@ -124,7 +125,7 @@ def expand_products_raw(i_a, k_a, v_a, a_live, row_ptr, b_cols, b_vals,
     src = torch.arange(cnt.numel(), device=cnt.device)
     e = torch.repeat_interleave(src, cnt)[:n_t]
     first = (torch.cumsum(cnt, 0) - cnt)[e]
-    b_pos = (row_ptr[:-1].long()[k_a.long()[e]]
+    b_pos = (row_start.long()[k_a.long()[e]]
              + torch.arange(n_t, device=cnt.device) - first)
     return i_a[e], b_cols[b_pos], v_a[e] * b_vals[b_pos]
 
@@ -211,7 +212,8 @@ def multiply(
             acon.indices[:, 1], a_live, b_csr, sj_pres))
     i_t, j_t, v_t = expand_products_raw(
         acon.indices[:, 0], acon.indices[:, 1], acon.vals, a_live,
-        b_csr.row_ptr, b_csr.cols, b_csr.vals, sj_pres, sj_val, expand_cap)
+        b_csr.row_ptr[:-1], b_csr.row_ptr[1:] - b_csr.row_ptr[:-1],
+        b_csr.cols, b_csr.vals, sj_pres, sj_val, expand_cap)
     merged = sort_and_merge_products(i_t, j_t, v_t.to(out_dtype), out_shape,
                                      merge_cap=expand_cap,
                                      merge_method=merge_method)

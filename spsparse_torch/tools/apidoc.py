@@ -56,6 +56,9 @@ MODULES = [
     "spsparse_torch.io.cdf",
     "spsparse_torch.io.nc4",
     "spsparse_torch.io.npz",
+    "spsparse_torch.io.sharded",
+    "spsparse_torch.dist",
+    "spsparse_torch.dist.multihost",
     "spsparse_torch.solvers",
     "spsparse_torch.graph",
     "spsparse_torch.convert",
