@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the spsparse_torch main path, solve path, SpMM path, SpGEMM path,
-unstructured SpMV path, core path, solver path, graph path and
-distributed path once on one CUDA card and check them.
+unstructured SpMV path, core path, solver path, graph path, distributed
+path and utils path once on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -327,14 +327,38 @@ D9. A world of one NCCL rank (``init_process_group("nccl",
     outcome is logged (NCCL refuses a second rank on one card); that
     attempt's wall is logged apart from the world of one's.
 
-The core path, the solver path, the graph path and the distributed path
-run after phase 25, so that their host work cannot reach the kernels'
-times. The launch counters of the kernel
-wrappers are reset before each path and read after it; a kernel of the
-path launched no time there fails the run.
+The utils path (``utils_path``), on config 2's band ``B`` (2**20 rows,
+11 diagonals) through ``band_coo``, ``to_dia`` and ``prepare_dia``:
+
+U1. ``utils.roofline.device_hbm_bandwidth()`` names the card (beside the
+    nvidia-smi line); ``spmv_dia_stats(11, 2**20)`` gives exactly the bytes
+    of the prepared diagonals plus x and y, which are the bytes behind
+    K1's float32 bound in the kernel table (whose memory rate is the
+    module's too).
+U2. ``utils.benchtime.bench_chained`` of ``y = spmv_dia_stream(prep, y)``
+    (K1, CUDA events) and ``time_ms`` of the same call, in turns: the two
+    must agree within 15%, and ``roofline(...)["pct_of_roofline"]`` must
+    not pass 105.
+U3. NVTX: ``trace_scope`` pushes a range on the card (``_NVTX``); a probe
+    ``range_push`` inside a traced op's scope opens one level deeper than
+    outside it, and the depth is back after the op and after a raising
+    body (counted by wrappers around the real NVTX calls, and by NVTX's
+    own return where a tool tracks it); the event log records the op and
+    the nested ``spsparse.spmv``.
+U4. ``core.validate.validate_coo`` passes on ``B`` and raises
+    ``SpSparseError`` on a copy with one live index out of range (and on
+    one negative index); ``check_capacity`` raises on overflow and passes
+    at equality.
+
+The core path, the solver path, the graph path, the distributed path and
+the utils path run after phase 25, so that their host work cannot reach
+the kernels' times. The launch counters of the kernel wrappers are reset
+before each path and read after it; a kernel of the path launched no time
+there fails the run.
 The last lines are a JSON line per timing and per path, the
 ``{"kernels": [...]}`` line (each kernel's launches on the distributed
-path in ``launches_dist_path``),
+path in ``launches_dist_path``, on the utils path in
+``launches_utils_path``),
 the card's name and power limit from nvidia-smi, and the result line
 ``{"ok": true, "device": {...}}``.
 """
@@ -405,7 +429,6 @@ FLOW_N = 1 << 14     # nodes of G6's flow network
 PATH_SIDE = 16       # grid side of G6's path-tools graph
 YEN_K = 8            # paths of G6's yen
 REORDER_N = 1 << 16  # rows of G8's scrambled band
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12     # H100 SXM bfloat16 on the tensor cores
 
@@ -4142,6 +4165,244 @@ def dist_path(torch, sp, dev, n=DIST_N, P=DIST_P, n2c=N, n4=CFG4_N,
     return st
 
 
+UTIL_ITERS = 20      # U2: chained K1 calls a rep
+UTIL_REPS = 15       # U2: reps of bench_chained and of time_ms
+UTIL_AGREE = 0.15    # U2: bench_chained and time_ms agree within this
+UTIL_MAX_PCT = 105.0  # U2: a roofline share above this fails
+
+
+def phase_util_roofline(torch, dev, prep, n, bw, smi, k1_bound_bytes):
+    """U1: the card's name and rate from ``utils.roofline``, and K1's
+    traffic model against the prepared operator's bytes and the kernel
+    table's bound."""
+    import importlib
+
+    R = importlib.import_module("spsparse_torch.utils.roofline")
+    if torch.device(dev).type == "cuda":
+        name, bw = R.device_hbm_bandwidth()
+        require(name == torch.cuda.get_device_name(0),
+                f"device_hbm_bandwidth named {name!r}")
+    else:
+        name = "cpu"
+    st = R.spmv_dia_stats(len(prep.offsets), n)
+    stored = len(prep.offsets) * n * 4 + 2 * n * 4
+    require(st.bytes_moved == stored,
+            f"spmv_dia_stats bytes {st.bytes_moved} != the prepared "
+            f"diagonals, x and y ({stored})")
+    if k1_bound_bytes is not None:
+        require(st.bytes_moved == k1_bound_bytes,
+                f"spmv_dia_stats bytes {st.bytes_moved} != K1's f32 bound "
+                f"bytes {k1_bound_bytes}")
+    log(f"U1 roofline: device {name!r} at {bw} B/s (nvidia-smi: {smi}); "
+        f"spmv_dia_stats({len(prep.offsets)}, {n}) = {st.bytes_moved} "
+        f"bytes, {st.flops} flops, speed of light "
+        f"{st.sol_time(bw) * 1e3:.6f} ms; K1 f32 bound bytes "
+        f"{k1_bound_bytes}")
+    return {"device": name, "bw": bw, "stats": st,
+            "sol_ms": st.sol_time(bw) * 1e3}
+
+
+def host_call_ms(fn, reps: int, inner: int) -> list[float]:
+    """Per-call milliseconds of ``reps`` host-clock runs of ``inner``
+    calls each (the CPU rehearsal's stand-in for ``time_ms``)."""
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        for _ in range(inner):
+            fn()
+        out.append((time.perf_counter() - t0) / inner * 1e3)
+    return out
+
+
+def phase_util_bench(torch, sp, dev, prep, x, u1):
+    """U2: ``bench_chained`` of the chained K1 step against ``time_ms`` of
+    the same call (host clock off the card), in turns."""
+    import importlib
+
+    from spsparse_torch.ops import spmv_dia_stream
+    from spsparse_torch.utils.benchtime import bench_chained
+
+    R = importlib.import_module("spsparse_torch.utils.roofline")
+    cuda = torch.device(dev).type == "cuda"
+
+    def chained():
+        return bench_chained(lambda y: spmv_dia_stream(prep, y), x,
+                             iters=UTIL_ITERS, warmup=3, reps=UTIL_REPS) * 1e3
+
+    def single():
+        call = (lambda: spmv_dia_stream(prep, x))
+        if cuda:
+            return time_ms(torch, call, reps=UTIL_REPS, inner=UTIL_ITERS)
+        return host_call_ms(call, UTIL_REPS, UTIL_ITERS)
+
+    b1, t1, t2, b2 = chained(), single(), single(), chained()
+    bench = float(np.median([b1, b2]))
+    timed = float(np.median(t1 + t2))
+    rel = abs(bench - timed) / timed
+    roof = R.roofline(u1["stats"], bench / 1e3, dev if not cuda else None,
+                      bw=None if cuda else u1["bw"])
+    log(f"U2 bench_chained: K1 f32 chained {bench:.6f} ms a call "
+        f"({b1:.6f}, {b2:.6f}); time_ms {timed:.6f} ms; off by "
+        f"{100 * rel:.2f}%; pct_of_roofline {roof['pct_of_roofline']:.2f} "
+        f"({roof['gbytes_per_s']:.1f} GB/s)")
+    if cuda:
+        require(rel <= UTIL_AGREE,
+                f"bench_chained {bench} ms and time_ms {timed} ms differ by "
+                f"{100 * rel:.2f}%")
+        require(roof["pct_of_roofline"] <= UTIL_MAX_PCT,
+                f"K1 at {roof['pct_of_roofline']:.2f}% of its roofline")
+    return {"bench_ms": bench, "time_ms": timed, "rel": rel,
+            "pct_of_roofline": roof["pct_of_roofline"],
+            "gbytes_per_s": roof["gbytes_per_s"]}
+
+
+def phase_util_nvtx(torch, sp, dev, B, x):
+    """U3: NVTX depth around a traced op's scope, after it and after a
+    raising body; the event log records the op.
+
+    NVTX reports a range's depth only to an attached tool (without one,
+    ``range_push`` returns -2, "no push/pop tracking"), so the depth is
+    also counted by wrappers around ``torch.cuda.nvtx.range_push`` and
+    ``range_pop`` that call the real ones: ``trace_scope`` must reach
+    them, balanced. Where NVTX returns depths, they are held too."""
+    from spsparse_torch.utils import trace as T
+
+    cuda = torch.device(dev).type == "cuda"
+    require(T._NVTX == cuda, f"trace._NVTX is {T._NVTX} on {dev}")
+    nvtx = torch.cuda.nvtx
+    real_push, real_pop = nvtx.range_push, nvtx.range_pop
+    depth = [0]
+    names = []
+
+    def push(name):
+        names.append(name)
+        depth[0] += 1
+        return real_push(name)
+
+    def pop():
+        depth[0] -= 1
+        return real_pop()
+
+    def probe():
+        if not T._NVTX:
+            return None
+        d = (nvtx.range_push("U3 probe"), depth[0] - 1)
+        nvtx.range_pop()
+        return d
+
+    @sp.utils.traced("U3 traced op")
+    def op():
+        return probe(), sp.ops.spmv(B, x)
+
+    sp.utils.enable_event_log(True)
+    nvtx.range_push, nvtx.range_pop = push, pop
+    try:
+        d0 = probe()
+        d_in, y = op()
+        d_after = probe()
+        try:
+            with sp.utils.trace_scope("U3 raising body"):
+                raise ValueError("U3")
+        except ValueError:
+            pass
+        d_raise = probe()
+        ops = [e["op"] for e in sp.utils.get_event_log()]
+    finally:
+        nvtx.range_push, nvtx.range_pop = real_push, real_pop
+        sp.utils.enable_event_log(False)
+    sync(torch, dev)
+    depths = {"outside": d0, "inside": d_in, "after": d_after,
+              "after_raise": d_raise}
+    tracked = None
+    if cuda:
+        for k in (1, 0) if d0[0] >= 0 else (1,):
+            # k = 1: the counted depths; k = 0: NVTX's own, when tracked
+            require(d_in[k] == d0[k] + 1 and d_after[k] == d0[k]
+                    and d_raise[k] == d0[k], f"NVTX depths {depths}")
+        tracked = d0[0] >= 0
+        require(depth[0] == 0, f"NVTX pushes and pops unbalanced by "
+                f"{depth[0]}")
+        require({"U3 traced op", "spsparse.spmv", "U3 raising body"}
+                <= set(names), f"NVTX ranges pushed: {names}")
+    require("U3 traced op" in ops and "spsparse.spmv" in ops,
+            f"event log {ops}")
+    require("U3 raising body" not in ops, f"event log {ops}")
+    require(bool(torch.isfinite(y).all()), "U3 spmv not finite")
+    log(f"U3 NVTX: depths (NVTX's, counted) {depths}; NVTX tracks depth: "
+        f"{tracked}; ranges pushed {names}; event log {ops}")
+    return {"depths": depths, "ops": ops, "tracked": tracked}
+
+
+def phase_util_validate(torch, sp, dev, B):
+    """U4: ``validate_coo`` and ``check_capacity`` on the card."""
+    import dataclasses
+
+    from spsparse_torch.core.validate import check_capacity, validate_coo
+
+    t0 = time.perf_counter()
+    validate_coo(B)
+    sync(torch, dev)
+    ok_s = time.perf_counter() - t0
+    raised = {}
+    for what, slot, col in (("high", B.nnz - 1, B.shape[1]),
+                            ("negative", B.nnz // 2, -1)):
+        idx = B.indices.clone()
+        idx[slot, 1] = col
+        bad = dataclasses.replace(B, indices=idx)
+        try:
+            validate_coo(bad)
+        except sp.SpSparseError as e:
+            raised[what] = str(e)
+    require(raised.get("high") == raised.get("negative")
+            == "Sparse index out of bounds among live entries",
+            f"validate_coo on bad copies raised {raised}")
+    pad = B.with_capacity(B.cap + 64)
+    validate_coo(pad)
+    check_capacity(B.nnz, B.nnz)
+    try:
+        check_capacity(torch.tensor(B.nnz + 1, device=dev), B.nnz, "U4")
+        require(False, "check_capacity did not raise on overflow")
+    except sp.SpSparseError as e:
+        raised["capacity"] = str(e)
+    require(raised["capacity"] == "spsparse U4 overflowed static capacity",
+            f"check_capacity raised {raised['capacity']!r}")
+    log(f"U4 validate: B ({B.nnz} entries, cap {B.cap}) passed in "
+        f"{ok_s:.4f} s; raised {raised}")
+    return {"ok_s": ok_s, "raised": raised}
+
+
+def utils_path(torch, sp, dev, n=N, bw=None, smi=None,
+               k1_bound_bytes=None) -> dict:
+    """Phases U1-U4 on ``dev`` on config 2's band: the roofline module,
+    ``bench_chained`` on K1, NVTX ranges and the eager checks. ``bw`` is
+    the memory rate off the card (the table names none for the CPU). Each
+    phase logs its host wall."""
+    from spsparse_torch.ops import prepare_dia
+
+    st: dict = {}
+    t0 = time.perf_counter()
+    B = band_coo(sp, dev, n)
+    prep = prepare_dia(sp.to_dia(B))
+    x = torch.from_numpy(np.random.default_rng(1).uniform(-1, 1, n)
+                         .astype(np.float32)).to(dev)
+    phase_done(torch, dev, f"U0 band: {B.nnz} entries, "
+               f"{len(prep.offsets)} diagonals", t0, st)
+    t0 = time.perf_counter()
+    st["u1"] = phase_util_roofline(torch, dev, prep, n, bw, smi,
+                                   k1_bound_bytes)
+    phase_done(torch, dev, "U1 roofline", t0, st)
+    t0 = time.perf_counter()
+    st["u2"] = phase_util_bench(torch, sp, dev, prep, x, st["u1"])
+    phase_done(torch, dev, "U2 bench_chained", t0, st)
+    t0 = time.perf_counter()
+    st["u3"] = phase_util_nvtx(torch, sp, dev, B, x)
+    phase_done(torch, dev, "U3 NVTX", t0, st)
+    t0 = time.perf_counter()
+    st["u4"] = phase_util_validate(torch, sp, dev, B)
+    phase_done(torch, dev, "U4 validate", t0, st)
+    return st
+
+
 def time_ms(torch, fn, *, reps: int = 15, inner: int = 10,
             warmup: int = 3) -> list[float]:
     """Per-call milliseconds of ``reps`` CUDA-event-timed runs of ``inner``
@@ -4234,10 +4495,13 @@ def per_iteration_ms(torch, solves: dict, long: int = 72,
 
 def bound_ms(nbytes: float, flops: float,
              flops_per_s: float = F32_FLOPS_PER_S) -> tuple[float, str]:
-    """Least time on an H100 SXM for the work: the larger of the bytes over
-    the memory rate and the operations over their type's rate (float32
-    outside the tensor cores unless ``flops_per_s`` says otherwise)."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    """Least time on the card for the work: the larger of the bytes over
+    its memory rate (``utils.roofline.device_hbm_bandwidth``) and the
+    operations over their type's rate on an H100 SXM (float32 outside the
+    tensor cores unless ``flops_per_s`` says otherwise)."""
+    from spsparse_torch.utils.roofline import device_hbm_bandwidth
+
+    t_bytes = nbytes / device_hbm_bandwidth()[1] * 1e3
     t_ops = flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -4858,6 +5122,7 @@ def main() -> int:
     from spsparse_torch.ops import (segmented_row_sums, shuffle_gather,
                                     sort_blocks)
     from spsparse_torch.solvers import cg_solve
+    from spsparse_torch.utils.roofline import spmv_dia_stats
 
     t_script = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4966,8 +5231,16 @@ def main() -> int:
 
         ms, plain_ms = compare_times(
             torch, call, lambda: spmv_dia_stream_reference(prep, xv))
-        b_ms, b_by = bound_ms(nz * item + 8 * N, 2 * nz)
+        if dname == "f32" and matrix == "banded":
+            # The roofline module's model (U1 holds it to these bytes):
+            # the stored diagonals, out-of-range slots included, x and y.
+            st = spmv_dia_stats(len(prep.offsets), N)
+            nbytes, flops = st.bytes_moved, st.flops
+        else:
+            nbytes, flops = nz * item + 8 * N, 2 * nz
+        b_ms, b_by = bound_ms(nbytes, flops)
         rows.append(dict(name="spmv_dia_stream", dtype=dname,
+                         bound_bytes=nbytes,
                          **KERNELS["spmv_dia_stream"],
                          launches=launches["spmv_dia_stream"],
                          max_abs_err=err, ms=ms,
@@ -5081,6 +5354,20 @@ def main() -> int:
     for row in rows:
         row["launches_dist_path"] = dist_counts[row["name"]]
 
+    k1_bytes = next(row["bound_bytes"] for row in rows
+                    if row["name"] == "spmv_dia_stream"
+                    and row["dtype"] == "f32"
+                    and row.get("matrix", "banded") == "banded")
+    torch.cuda.reset_peak_memory_stats()
+    util, util_counts = run_path(torch, wrappers, utils_path, torch, sp, dev,
+                                 N, None, smi, k1_bytes)
+    log(f"utils path kernel launches: {util_counts}; peak device memory "
+        f"{torch.cuda.max_memory_allocated()} bytes")
+    require(util_counts["spmv_dia_stream"] > 0,
+            "kernel spmv_dia_stream was not launched on the utils path")
+    for row in rows:
+        row["launches_utils_path"] = util_counts[row["name"]]
+
     for row in rows:
         print(json.dumps({
             "timing": row["name"], "dtype": row["dtype"],
@@ -5149,6 +5436,20 @@ def main() -> int:
                       "nccl_pair_refused": dist_st["nccl_pair_refused"],
                       "d9_split_s": dist_st["d9_split_s"],
                       "launches": {k: v for k, v in dist_counts.items()
+                                   if v},
+                      "device": card, "nvidia_smi": smi}), flush=True)
+    print(json.dumps({"timing": "utils path, phases U0-U4",
+                      "wall_s": util["wall_s"],
+                      "peak_bytes": util["peak_bytes"],
+                      "hbm_bytes_per_s": util["u1"]["bw"],
+                      "k1_f32_bound_bytes": k1_bytes,
+                      "k1_sol_ms": util["u1"]["sol_ms"],
+                      "bench_chained_ms": util["u2"]["bench_ms"],
+                      "time_ms": util["u2"]["time_ms"],
+                      "pct_of_roofline": util["u2"]["pct_of_roofline"],
+                      "nvtx_depths": util["u3"]["depths"],
+                      "validate_s": util["u4"]["ok_s"],
+                      "launches": {k: v for k, v in util_counts.items()
                                    if v},
                       "script_wall_s": time.perf_counter() - t_script,
                       "device": card, "nvidia_smi": smi}), flush=True)

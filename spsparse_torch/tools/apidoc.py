@@ -34,6 +34,7 @@ MODULES = [
     "spsparse_torch.core.tiled",
     "spsparse_torch.core.reorder",
     "spsparse_torch.core.interop",
+    "spsparse_torch.core.validate",
     "spsparse_torch.ops.multiply_sparse",
     "spsparse_torch.ops.spgemm",
     "spsparse_torch.ops.spgemm_tiled",
@@ -65,6 +66,8 @@ MODULES = [
     "spsparse_torch.backend",
     "spsparse_torch.native",
     "spsparse_torch.utils.trace",
+    "spsparse_torch.utils.benchtime",
+    "spsparse_torch.utils.roofline",
 ]
 
 

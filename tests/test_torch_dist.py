@@ -356,15 +356,22 @@ def test_dist_spgemm_matches_dense(variant, case):
 
 @pytest.fixture(scope="module")
 def jax_spgemm_band():
-    """The JAX package's single-device ``spgemm`` of the band (one call:
-    its compile takes ~17 s here)."""
+    """The JAX package's single-device ``spgemm`` of the band, one call
+    under ``jax.jit`` with caps that hold the whole product (eager, its
+    per-primitive compiles took ~17-24 s here; jitted, one compile). Only
+    the live entries are compared, which the caps do not change."""
     from spsparse_tpu.ops import spgemm
 
     a = MATS["band"].tocoo()
     A = JCOO.from_arrays(np.stack([a.row, a.col], 1), a.data, a.shape,
                          sort_order=(0, 1))
-    C = spgemm(A, A)
+    # the products A·A expands to: column counts times row counts
+    expansion = int(np.bincount(a.col, minlength=a.shape[0])
+                    @ np.bincount(a.row, minlength=a.shape[0]))
+    cap = 1 << expansion.bit_length()
+    C = jax.jit(lambda A: spgemm(A, A, cap=cap, expand_cap=cap))(A)
     n = int(C.nnz)
+    assert n <= expansion < cap
     return np.asarray(C.indices)[:n], np.asarray(C.vals)[:n]
 
 
@@ -572,16 +579,19 @@ def test_dist_connected_components_match_jax(kind):
 # ----------------------------------------------------------------------
 @pytest.fixture(scope="module")
 def jax_dist():
-    """Three JAX distributed calls at P = 4 on the battery's operands."""
+    """Three JAX distributed calls at P = 4 on the battery's operands (the
+    two SpMVs under ``jax.jit``: one compile each, where their eager
+    primitives compiled ~55 times each)."""
     inp = battery_inputs()
     jm = Mesh(np.asarray(jax.devices()[:P4]), ("x",))
     xp = jd.partition_vector(inp["x"], P4)
     return {
-        "spmv_all_gather": np.asarray(jd.dist_spmv(
-            jd.partition_rows(jax_csr(inp["A"]), P4), xp, jm,
-            method="all_gather")),
-        "spmv_a2a": np.asarray(jd.dist_spmv_a2a(
-            jd.partition_footprint(jax_csr(inp["A"]), P4), xp, jm)),
+        "spmv_all_gather": np.asarray(jax.jit(
+            lambda p, x: jd.dist_spmv(p, x, jm, method="all_gather"))(
+            jd.partition_rows(jax_csr(inp["A"]), P4), xp)),
+        "spmv_a2a": np.asarray(jax.jit(
+            lambda p, x: jd.dist_spmv_a2a(p, x, jm))(
+            jd.partition_footprint(jax_csr(inp["A"]), P4), xp)),
         "bellman_ford": np.asarray(jd.dist_bellman_ford(
             jd.partition_rows(jax_csr(inp["G"]), P4), [0, 30, 60], jm)),
     }

@@ -1,10 +1,10 @@
 """The distributed layer on a ``GroupMesh``: one partition a rank of a Gloo
 process group on the CPU, against the ``StackedMesh`` run of the same ops.
 
-Two spawns in all (each rank is ``tests/torch_dist_worker.py``, joined
-through a ``FileStore`` under ``tmp_path``, one thread, the whole spawn
-bounded at 180 s so that a hung rank fails its cases instead of the
-suite's clock):
+One spawn of four processes in all (each rank is
+``tests/torch_dist_worker.py both``, joined through a ``FileStore`` under
+``tmp_path``, one thread, the whole spawn bounded at 180 s so that a hung
+rank fails its cases instead of the suite's clock):
 
 * 4 ranks run the battery (every op of ``spsparse_torch.dist.__all__``
   that takes a mesh, plus ``DistBlockJacobi``); each rank's blocks must
@@ -12,7 +12,8 @@ suite's clock):
   exactly) and, assembled, the float64 oracle; given the layouts
   ``mesh.shard_layout`` made once (a rank's own blocks only), each op
   gives what it gives on the global layouts, bit for bit;
-* 2 ranks run the counterpart of ``tests/multihost_worker.py``:
+* then, in a world of their own, ranks 0 and 1 run the counterpart of
+  ``tests/multihost_worker.py``:
   ``multihost.initialize``, ``pod_mesh``, a ring SpMV across the ranks,
   and two sharded checkpoints, one written a rank's partitions at a time
   and one from each rank's sharded layout, which both packages read back
@@ -64,10 +65,16 @@ def spawn(mode: str, world: int, workdir: Path) -> dict:
             if p.poll() is None:
                 p.kill()
                 p.wait()
+    return {"rcs": [p.returncode for p in procs], "outs": outs}
+
+
+def results(run: dict, workdir: Path, world: int) -> dict:
+    """Each of ``world`` ranks' exit code, output and results saved in
+    ``workdir`` (None where it saved none)."""
     ranks = []
-    for r, (p, out) in enumerate(zip(procs, outs)):
+    for r in range(world):
         path = workdir / f"rank{r}.pt"
-        ranks.append({"rc": p.returncode, "out": out,
+        ranks.append({"rc": run["rcs"][r], "out": run["outs"][r],
                       "res": torch.load(path) if path.exists() else None})
     return {"ranks": ranks}
 
@@ -80,21 +87,30 @@ def ok(run: dict) -> list:
 
 
 @pytest.fixture(scope="module")
-def battery(tmp_path_factory):
-    """The 4-rank spawn, and the same battery on ``StackedMesh(4)``."""
-    from spsparse_torch.dist import StackedMesh
-
-    run = spawn("battery", w.P_BATTERY, tmp_path_factory.mktemp("battery"))
-    run["stacked"] = w.run_battery(StackedMesh(w.P_BATTERY, "cpu"))
-    return run
+def spawned(tmp_path_factory):
+    """The one spawn of 4 ranks: the battery, then the 2-rank multihost
+    run on ranks 0 and 1."""
+    workdir = tmp_path_factory.mktemp("group")
+    return workdir, spawn("both", w.P_BATTERY, workdir)
 
 
 @pytest.fixture(scope="module")
-def multihost(tmp_path_factory):
-    workdir = tmp_path_factory.mktemp("multihost")
-    run = spawn("multihost", 2, workdir)
-    run["dir"] = workdir
-    return run
+def battery(spawned):
+    """The 4 ranks' battery, and the same battery on ``StackedMesh(4)``."""
+    from spsparse_torch.dist import StackedMesh
+
+    workdir, run = spawned
+    out = results(run, workdir / "battery", w.P_BATTERY)
+    out["stacked"] = w.run_battery(StackedMesh(w.P_BATTERY, "cpu"))
+    return out
+
+
+@pytest.fixture(scope="module")
+def multihost(spawned):
+    workdir, run = spawned
+    out = results(run, workdir / "multihost", 2)
+    out["dir"] = workdir / "multihost"
+    return out
 
 
 OPS = ["spmv_ring", "spmv_all_gather", "spmv_bucketed", "spmv_halo", "spmm",

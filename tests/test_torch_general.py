@@ -107,14 +107,24 @@ CASES = {
 }
 
 
+# The JAX package's consolidate under jax.jit: one compile a capacity.
+J_CONSOLIDATE = jax.jit(lambda a: a.consolidate((0, 1)))
+
+
 @pytest.fixture(scope="module")
 def general():
     """Each matrix prepared in both packages, with the JAX products,
-    computed once."""
+    computed once. The gather layouts' first step is ``consolidate((0,
+    1))``, a no-op on an operand already in that order: the JAX operand of
+    those routes comes consolidated from its jitted consolidate (one
+    compile, where the same call made eagerly inside ``prepare_general``
+    compiled its primitives for ~20 s); the port's stays as built."""
     out = {}
-    for seed, (name, (make, _, n_rhs)) in enumerate(CASES.items()):
+    for seed, (name, (make, route, n_rhs)) in enumerate(CASES.items()):
         rng = np.random.default_rng(seed)
         ja, ta = build_both(*make(rng))
+        if route.startswith("gather"):
+            ja = J_CONSOLIDATE(ja)
         X = rng.uniform(-1, 1, (ja.shape[1], n_rhs)).astype(np.float32)
         jpg = j_prepare(ja)
         out[name] = {"ja": ja, "ta": ta, "X": X, "jpg": jpg,
@@ -213,8 +223,8 @@ def test_warnings_for_dtypes_that_do_not_apply(general):
 def test_gather_layout_grads_match_jax(general):
     case = general["scattered"]
     X = case["X"]
-    gj = np.asarray(jax.grad(lambda Xc: jnp.sum(
-        j_spmm(case["jpg"], Xc) ** 2))(jnp.asarray(X)))
+    gj = np.asarray(jax.jit(jax.grad(lambda Xc: jnp.sum(
+        j_spmm(case["jpg"], Xc) ** 2)))(jnp.asarray(X)))
     Xt = torch.from_numpy(X).requires_grad_(True)
     (t_spmm(case["tpg"], Xt) ** 2).sum().backward()
     close(tn(Xt.grad), gj, rtol=1e-4, atol_rel=1e-4)

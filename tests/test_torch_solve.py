@@ -275,7 +275,10 @@ def test_grads_match_jax(case):
         d = JDIA(data=dj, offsets=offs, shape=(n, n))
         return jnp.sum(jnp.asarray(W) * j_fn(d, Xj))
 
-    gj = jax.grad(loss, argnums=(0, 1))(jnp.asarray(data), jnp.asarray(X))
+    # under jax.jit: one compile, where the eager gradient's primitives
+    # compiled ~40 times a case
+    gj = jax.jit(jax.grad(loss, argnums=(0, 1)))(jnp.asarray(data),
+                                                 jnp.asarray(X))
     gt = _grads_torch(data, offs, n, X, W, t_fn)
     for a, b in zip(gt, gj):
         np.testing.assert_allclose(a, np.asarray(b), rtol=rtol, atol=atol)
@@ -549,7 +552,7 @@ def test_cg_solve_implicit_grads_match_jax(system):
             lambda v: jnp.asarray(A) @ v + t * v, bj, iters=40)
         return jnp.sum(jnp.asarray(w) * x)
 
-    gj = jax.grad(j_loss, argnums=(0, 1))(jnp.asarray(b), 0.7)
+    gj = jax.jit(jax.grad(j_loss, argnums=(0, 1)))(jnp.asarray(b), 0.7)
     bt = t64(b).requires_grad_(True)
     tt = torch.tensor(0.7, dtype=torch.float64, requires_grad=True)
     tA = system["tA"]

@@ -187,8 +187,11 @@ def tiled_case():
     jfun = {"rows": jpt.spmm_tiled_pallas,
             "dense": jpt.spmm_tiled_dense_pallas,
             "window": jpw.spmm_tiled_window_pallas}
-    jy = {key: np.asarray(jfun[key.split("_")[0]](p, Xj, interpret=True))
-          for key, p in jp.items()}
+    # The JAX products and gradients run under jax.jit: one compile each,
+    # where their eager primitives compiled ~100 times for the fixture.
+    jy = {key: np.asarray(jax.jit(
+        lambda p, x, fn=jfun[key.split("_")[0]]: fn(p, x, interpret=True))(
+        p, Xj)) for key, p in jp.items()}
 
     def jgrad(key, field):
         p, fn = jp[key], jfun[key.split("_")[0]]
@@ -197,8 +200,8 @@ def tiled_case():
             q = dataclasses.replace(p, **{field: a})
             return jnp.sum(Wj * fn(q, x, interpret=True))
 
-        return [np.asarray(g) for g in jax.grad(loss, argnums=(0, 1))(
-            getattr(p, field), Xj)]
+        return [np.asarray(g) for g in jax.jit(
+            jax.grad(loss, argnums=(0, 1)))(getattr(p, field), Xj)]
 
     jg = {"rows": jgrad("rows", "vals"),
           "dense_f32": jgrad("dense_f32", "blocks"),

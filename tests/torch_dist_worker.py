@@ -1,7 +1,7 @@
 """Rank program of the ``GroupMesh`` tests (``tests/test_torch_dist_group.py``;
 not a pytest module) and the battery they share with the parent process.
 
-    python tests/torch_dist_worker.py battery|multihost RANK WORLD DIR
+    python tests/torch_dist_worker.py battery|multihost|both RANK WORLD DIR
 
 Each rank joins a Gloo process group through a ``FileStore`` in ``DIR``
 (no TCP port), runs on the CPU with one thread, and writes what it
@@ -18,6 +18,9 @@ computed to ``DIR/rank<RANK>.pt``:
   ``save_netcdf_sharded(..., parts=my_partitions(4))`` of a 4-way
   partition, and ``save_netcdf_sharded`` of a rank's sharded layout of a
   2-way one; the parent reloads both checkpoints whole.
+* ``both`` (4 ranks): ``battery`` in ``DIR/battery``; then the group is
+  destroyed, and ranks 0 and 1 run ``multihost`` in a world of two in
+  ``DIR/multihost`` (one spawn of processes for both).
 """
 
 import os
@@ -191,12 +194,11 @@ def multihost_run(rank: int, workdir: str) -> dict:
             "mesh": repr(mesh)}
 
 
-def main(argv) -> int:
-    mode, rank, world, workdir = argv[1], int(argv[2]), int(argv[3]), argv[4]
-    torch.set_num_threads(1)
-    _join(rank, world, workdir, multihost=mode == "multihost")
+def run_mode(mode: str, rank: int, world: int, workdir: str) -> None:
     import torch.distributed as dist
 
+    os.makedirs(workdir, exist_ok=True)
+    _join(rank, world, workdir, multihost=mode == "multihost")
     try:
         if mode == "battery":
             from spsparse_torch.dist import GroupMesh
@@ -208,6 +210,17 @@ def main(argv) -> int:
         dist.barrier()
     finally:
         dist.destroy_process_group()
+
+
+def main(argv) -> int:
+    mode, rank, world, workdir = argv[1], int(argv[2]), int(argv[3]), argv[4]
+    torch.set_num_threads(1)
+    if mode != "both":
+        run_mode(mode, rank, world, workdir)
+        return 0
+    run_mode("battery", rank, world, os.path.join(workdir, "battery"))
+    if rank < 2:
+        run_mode("multihost", rank, 2, os.path.join(workdir, "multihost"))
     return 0
 
 
