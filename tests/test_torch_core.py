@@ -18,6 +18,7 @@ import spsparse_tpu as jsp
 import spsparse_torch as tsp
 from spsparse_torch.convert import coo_to_numpy, tensor_to_numpy
 from port_threads import one_torch_thread  # noqa: F401 (autouse)
+import port_refs as refs
 
 ROOT = Path(__file__).resolve().parents[1]
 POLICIES = ["ADD", "LEAVE_ALONE", "REPLACE"]
@@ -261,7 +262,9 @@ def test_consolidate_cap_and_float32():
     rng = np.random.default_rng(5)
     idx, vals = random_entries(rng, (6, 6), 30)
     j, t = build_both((6, 6), idx, vals, dtype=np.float32)
-    assert_same_coo(jsp.consolidate(j, (0, 1), cap=64),
+    # jitted: the module's only float32 consolidate, which eagerly compiled
+    # its primitives anew in float32 (~5 s)
+    assert_same_coo(refs.jit(jsp.consolidate, sort_order=(0, 1), cap=64)(j),
                     tsp.consolidate(t, (0, 1), cap=64), rtol=1e-6)
 
 

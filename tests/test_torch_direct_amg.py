@@ -5,8 +5,9 @@ eigen entry points (``solvers/eigs_api.py``), ``inv``/``expm``
 package, on the CPU, plus the ``chip_smoke.solver_path`` rehearsal.
 
 The same numpy inputs (made from a seed) go through ``spsparse_tpu`` (x64
-is on, ``tests/conftest.py``) and ``spsparse_torch``. Each JAX reference is
-computed once per module.
+is on, ``tests/conftest.py``) and ``spsparse_torch``. The AMG hierarchy,
+its V-cycle, the eigen entry points and the matrix functions are JAX
+references computed once per worker (``port_refs.memo``).
 
 Tolerances: the native binding, ``splu``'s factors and permutations and the
 AMG aggregates are exact (the same C++, built with the same fused
@@ -22,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 import spsparse_torch as tsp
@@ -32,6 +34,7 @@ from spsparse_torch import native as tn
 from spsparse_torch import solvers as ts
 from spsparse_torch.convert import coo_to_numpy
 from port_threads import one_torch_thread  # noqa: F401 (autouse)
+import port_refs as refs
 
 jdirect = importlib.import_module("spsparse_tpu.solvers.direct")
 tdirect = importlib.import_module("spsparse_torch.solvers.direct")
@@ -82,13 +85,7 @@ def mats():
     i = np.arange(12)
     Q = np.diag(2.0 + 0.01 * i) - np.eye(12, k=1) - np.eye(12, k=-1)
     return {"G": (G, *both(G)), "L": (L, *both(L)), "P": (P, *both(P)),
-            "T": (T, *both(T)), "Q": (Q, *both(Q)), "rng": rng, "refs": {}}
-
-
-def ref(mats, key, fn):
-    if key not in mats["refs"]:
-        mats["refs"][key] = fn()
-    return mats["refs"][key]
+            "T": (T, *both(T)), "Q": (Q, *both(Q)), "rng": rng}
 
 
 def t64(a):
@@ -240,8 +237,7 @@ def test_splu_matches_jax(mats, case):
         np.testing.assert_allclose(Pr @ G @ Pc, LU, atol=1e-12)
     b = np.linspace(-1, 2, n)
     for trans in ("N", "T"):
-        want = ref(mats, ("splu", case, trans),
-                   lambda: jlu.solve(jnp.asarray(b), trans=trans))
+        want = jlu.solve(jnp.asarray(b), trans=trans)
         assert_close(tlu.solve(t64(b), trans=trans), want)
 
 
@@ -267,8 +263,8 @@ def test_spsolve_triangular_matches_jax(mats, monkeypatch, layout):
         jL, tL = both(L.T.copy())[0], both(L.T.copy())[1]
     method = "host" if layout == "host" else "device"
     dt = np.float32 if layout == "dia_f32" else np.float64
-    want = ref(mats, ("tri", layout), lambda: js.spsolve_triangular(
-        jL, jnp.asarray(b.astype(dt)), lower=lower, method=method))
+    want = js.spsolve_triangular(jL, jnp.asarray(b.astype(dt)),
+                                 lower=lower, method=method)
     got = ts.spsolve_triangular(tL, torch.as_tensor(b.astype(dt)),
                                 lower=lower, method=method)
     assert got.dtype == torch.from_numpy(np.zeros(1, dt)).dtype
@@ -308,8 +304,7 @@ def test_spsolve_factorized_and_errors(mats):
     missing-diagonal inputs raise as there."""
     G, jA, tA = mats["G"]
     B = np.stack([np.ones(N), np.arange(N, dtype=float)], 1)
-    want = ref(mats, "spsolve", lambda: js.spsolve(jA, jnp.asarray(B),
-                                                   solve_method="host"))
+    want = js.spsolve(jA, jnp.asarray(B), solve_method="host")
     assert_close(ts.spsolve(tA, t64(B), solve_method="host"), want)
     assert_close(ts.factorized(tA, solve_method="host")(t64(B[:, 1])),
                  np.asarray(want)[:, 1])
@@ -358,6 +353,11 @@ def test_amg_aggregates_match_jax(mats):
         np.testing.assert_array_equal(at, aj)
 
 
+def vcycle(h, r):
+    """One V-cycle of the JAX hierarchy ``h`` under ``jax.jit``."""
+    return jax.jit(type(h).__call__)(h, r)
+
+
 @pytest.mark.parametrize("op", ["Q", "P"])
 def test_amg_setup_and_vcycle(mats, op):
     """Q (12 rows, coarse size 4): the hierarchy equals the JAX package's,
@@ -372,13 +372,13 @@ def test_amg_setup_and_vcycle(mats, op):
     th = ts.amg_setup(tA, coarse_size=cs)
     r = np.sin(np.arange(A.shape[0]))
     if op == "Q":
-        jh = ref(mats, "amg", lambda: js.amg_setup(jA, coarse_size=cs))
+        jh = refs.memo(js.amg_setup, jA, coarse_size=cs)
         assert [lvl.a.shape for lvl in th.levels] == \
             [lvl.a.shape for lvl in jh.levels]
         for g, w in zip(_level_arrays(th, lambda t: t.numpy()),
                         _level_arrays(jh, np.asarray)):
             assert_close(g, w)
-        want = ref(mats, "vcycle", lambda: jh(jnp.asarray(r)))
+        want = refs.memo(vcycle, jh, jnp.asarray(r))
         assert_close(th(t64(r)), want)
     assert len(th.levels) >= 2
     for fine, coarse in zip(th.levels, th.levels[1:]):
@@ -404,17 +404,17 @@ def test_eigs_api_matches_jax(mats, case):
     values against numpy too."""
     P, jP, tP = mats["T"]
     if case == "eigsh_sigma":
-        jv, jV = ref(mats, case, lambda: js.eigsh(jP, k=3, sigma=2.1))
+        jv, jV = refs.memo(js.eigsh, jP, k=3, sigma=2.1)
         tv, tV = ts.eigsh(tP, k=3, sigma=2.1)
         exact = np.sort(np.linalg.eigvalsh(P)[np.argsort(np.abs(
             np.linalg.eigvalsh(P) - 2.1))[:3]])
     elif case == "eigsh_LM":
-        jv, jV = ref(mats, case, lambda: js.eigsh(jP, k=3))
+        jv, jV = refs.memo(js.eigsh, jP, k=3)
         tv, tV = ts.eigsh(tP, k=3)
         exact = np.sort(np.linalg.eigvalsh(P))[-3:]
     else:
-        jv, jV = ref(mats, case, lambda: js.eigs(jP, k=2, sigma=2.1,
-                                                 ncv=40, restarts=2))
+        jv, jV = refs.memo(js.eigs, jP, k=2, sigma=2.1, ncv=40,
+                           restarts=2)
         tv, tV = ts.eigs(tP, k=2, sigma=2.1, ncv=40, restarts=2)
         np.testing.assert_allclose(tv, np.asarray(jv), rtol=1e-8)
         return
@@ -434,12 +434,12 @@ def test_matfuncs_match_jax(mats, fn):
     import scipy.linalg as sl
     if fn == "inv":
         T, jA, tA = mats["T"]
-        want, dense = ref(mats, fn, lambda: js.inv(jA)), np.linalg.inv(T)
+        want, dense = refs.memo(js.inv, jA), np.linalg.inv(T)
         got = ts.inv(tA)
     else:
         Q = mats["Q"][0] * (0.01 / 4.02)
         jA, tA = both(Q)
-        want, dense = ref(mats, fn, lambda: js.expm(jA)), sl.expm(Q)
+        want, dense = refs.memo(js.expm, jA), sl.expm(Q)
         got = ts.expm(tA)
     assert isinstance(got, tsp.SparseCOO) and got.nnz == int(want.nnz)
     assert_close(got.to_dense(), np.asarray(want.to_dense()))

@@ -31,6 +31,7 @@ from spsparse_tpu import SparseCOO as JCOO
 from spsparse_torch import SparseCOO as TCOO, SpSparseError
 from spsparse_torch.convert import coo_to_numpy, relax_plan_from_jax
 from port_threads import one_torch_thread  # noqa: F401 (autouse)
+import port_refs as refs
 
 SEMIRINGS = ("MIN_PLUS", "MAX_PLUS", "MIN_MIN", "MAX_MIN", "OR_AND",
              "PLUS_TIMES")
@@ -332,8 +333,12 @@ def test_components_no_edges():
 
 @pytest.mark.parametrize("graph", ["w", "ties", "ties32", "sparse"])
 def test_minimum_spanning_tree(g, graph):
+    """The JAX Boruvka (jit-compatible, one ``lax.while_loop``) runs under
+    ``jax.jit``: one compile a dtype, where eagerly every primitive of its
+    set-up, compaction and consolidate compiles (~12 s)."""
     j, t = g[graph]
-    same_coo(jg.minimum_spanning_tree(j), tg.minimum_spanning_tree(t))
+    same_coo(refs.jit(jg.minimum_spanning_tree)(j),
+             tg.minimum_spanning_tree(t))
 
 
 # ----------------------------------------------------------------------
@@ -397,17 +402,23 @@ def test_maximum_flow(seed):
 # Laplacian, path tools, conversions
 # ----------------------------------------------------------------------
 
+def _laplacians(j, normed):
+    """Both forms of the JAX ``laplacian``, one ``jax.jit`` compile for
+    the two (eagerly they compiled their consolidates for ~20 s)."""
+    return (jg.laplacian(j, normed=normed, return_diag=True),
+            jg.laplacian(j, normed=normed))
+
+
 @pytest.mark.parametrize("graph", ["ties", "ties32"])
 @pytest.mark.parametrize("normed", [False, True])
 def test_laplacian(g, graph, normed):
     j, t = g[graph]
     rtol = 1e-6 if graph == "ties32" else 1e-12
-    jL, jd = jg.laplacian(j, normed=normed, return_diag=True)
+    (jL, jd), jL_only = refs.jit(_laplacians, normed=normed)(j)
     tL, td = tg.laplacian(t, normed=normed, return_diag=True)
     same_coo(jL, tL, rtol=rtol)
     np.testing.assert_allclose(t2n(td), np.asarray(jd), rtol=rtol)
-    same_coo(jg.laplacian(j, normed=normed), tg.laplacian(t, normed=normed),
-             rtol=rtol)
+    same_coo(jL_only, tg.laplacian(t, normed=normed), rtol=rtol)
 
 
 @pytest.mark.parametrize("directed", [True, False])

@@ -6,7 +6,18 @@ Indices and nnz must match exactly, float64 values within rtol 1e-12 (the
 default "compact" merge sums each run in another order than the JAX
 package's tree); with ``merge_method="scatter"`` on the CPU both packages
 sum each cell left to right, so values must be bitwise equal.
+
+The seeded cases run the JAX references under ``jax.jit`` (``port_refs``):
+one compile for all seeds, where eagerly each seed's capacities compiled
+much of the ESC chain anew. The chain shim's case runs first: its eager
+call (the shim infers its capacities on the host, so it cannot be jitted)
+compiles the chain's primitives, which the single cases after it reuse
+eagerly, and it holds the jitted reference to the eager call, capacities
+included; the first ``scatter`` seed of ``mv`` does the same for ``mv``.
 """
+
+import importlib
+import unittest.mock as mock
 
 import numpy as np
 import pytest
@@ -17,6 +28,12 @@ from spsparse_tpu.ops import multiply as j_multiply, multiply_mv as j_mv
 from spsparse_torch.convert import coo_to_numpy
 from spsparse_torch.ops import multiply as t_multiply, multiply_mv as t_mv
 from port_threads import one_torch_thread  # noqa: F401 (autouse)
+import port_refs as refs
+
+JM = importlib.import_module("spsparse_tpu.ops.multiply")
+# Every operand of the seeded cases has capacity 16 (14 entries), so
+# 16 x 16 products bound every seed's expansion: one shape, one compile.
+EXPAND = 256
 
 
 def build_both(shape, idx, vals, cap=None):
@@ -56,6 +73,31 @@ def assert_same(j, t, *, bitwise=False):
                                    atol=0, equal_nan=True)
 
 
+def same_as_eager(j, eager):
+    """The jitted reference equals the eager call: capacity, count,
+    indices and values, padding included."""
+    assert j.cap == eager.cap and int(j.nnz) == int(eager.nnz)
+    assert j.sort_order == eager.sort_order
+    np.testing.assert_array_equal(np.asarray(j.indices),
+                                  np.asarray(eager.indices))
+    np.testing.assert_array_equal(np.asarray(j.vals), np.asarray(eager.vals))
+
+
+def eager_multiply(fn, **kw):
+    """An eager call of ``fn`` (a JAX MM chain) and the expansion capacity
+    its ``multiply`` inferred."""
+    seen = []
+    real = JM._expand_products
+
+    def spy(*args):
+        seen.append(args[-1])
+        return real(*args)
+
+    with mock.patch.object(JM, "_expand_products", spy):
+        out = fn(**kw)
+    return out, seen[0]
+
+
 def operands(seed, ta=False, tb=False):
     rng = np.random.default_rng(seed)
     I, K, J = 6, 5, 7
@@ -65,12 +107,30 @@ def operands(seed, ta=False, tb=False):
     return A, B, scales
 
 
+def test_multiply_chain_shim_matches():
+    """The module's one eager ``multiply`` (the shim infers its capacities
+    on the host, so it cannot be jitted): it also holds the jitted
+    reference of the other cases to the eager call, capacities included."""
+    (jA, tA), (jB, tB), ((jsi, tsi), _, _) = operands(50, ta=True)
+    from spsparse_tpu.ops import multiply_chain as j_chain
+    from spsparse_torch.ops import multiply_chain as t_chain
+    eager, expand_cap = eager_multiply(
+        j_chain, C=1.5, scalei=jsi, A=jA, tA="T", B=jB)
+    bound = refs.expansion_bound(jA, jB, transpose_a=True)
+    assert expand_cap <= refs.round_up_pow2(bound) <= EXPAND
+    for cap in (None, EXPAND):
+        same_as_eager(refs.multiply(1.5, jA, jB, scalei=jsi,
+                                    transpose_a=True, expand_cap=cap),
+                      eager)
+    assert_same(eager, t_chain(C=1.5, scalei=tsi, A=tA, tA="T", B=tB))
+
+
 @pytest.mark.parametrize("merge_method", ["compact", "scatter"])
 @pytest.mark.parametrize("seed", list(range(1, 9)))
 def test_mm_scaled_matches_jax(seed, merge_method):
     (jA, tA), (jB, tB), ((jsi, tsi), (jsj, tsj), (jsk, tsk)) = operands(seed)
-    j = j_multiply(0.5, jA, jB, scalei=jsi, scalej=jsj, scalek=jsk,
-                   merge_method=merge_method)
+    kw = dict(scalei=jsi, scalej=jsj, scalek=jsk, merge_method=merge_method)
+    j = refs.multiply(0.5, jA, jB, expand_cap=EXPAND, **kw)
     t = t_multiply(0.5, tA, tB, scalei=tsi, scalej=tsj, scalek=tsk,
                    merge_method=merge_method)
     assert_same(j, t, bitwise=merge_method == "scatter")
@@ -107,7 +167,7 @@ def test_mm_zero_sum_dropped_nan_sum_emitted():
     jA, tA = build_both((2, 2), idx, np.array([1.0, -1.0, np.nan]))
     jB, tB = build_both((2, 1), np.array([[0, 0], [1, 0]]),
                         np.array([2.0, 2.0]))
-    j, t = j_multiply(1.0, jA, jB), t_multiply(1.0, tA, tB)
+    j, t = refs.multiply(1.0, jA, jB), t_multiply(1.0, tA, tB)
     assert t.to_lists()[0] == [(1, 0)]
     assert_same(j, t)
 
@@ -120,8 +180,8 @@ def test_mm_duplicate_policy_and_zero_nan_reach_operands():
                         np.array([1.0, 1.0]))
     for pol in ("LEAVE_ALONE", "REPLACE"):
         assert_same(
-            j_multiply(1.0, jA, jB, zero_nan=True,
-                       duplicate_policy=getattr(jsp.DuplicatePolicy, pol)),
+            refs.multiply(1.0, jA, jB, zero_nan=True,
+                          duplicate_policy=getattr(jsp.DuplicatePolicy, pol)),
             t_multiply(1.0, tA, tB, zero_nan=True,
                        duplicate_policy=tsp.DuplicatePolicy[pol]))
 
@@ -133,7 +193,10 @@ def test_mv_scaled_matches_jax(seed, merge_method):
     jA, tA = random_both(rng, (7, 6), 16)
     jV, tV = scale_both(rng, 6)
     (jsi, tsi), (jsj, tsj) = scale_both(rng, 7), scale_both(rng, 6)
-    j = j_mv(2.0, jA, jV, scalei=jsi, scalej=jsj, merge_method=merge_method)
+    kw = dict(scalei=jsi, scalej=jsj, merge_method=merge_method)
+    j = refs.multiply_mv(2.0, jA, jV, **kw)
+    if seed == 1 and merge_method == "scatter":
+        same_as_eager(j, j_mv(2.0, jA, jV, **kw))
     t = t_mv(2.0, tA, tV, scalei=tsi, scalej=tsj, merge_method=merge_method)
     assert_same(j, t, bitwise=merge_method == "scatter")
 
@@ -144,11 +207,3 @@ def test_mv_transpose_matches_jax():
     jV, tV = random_both(rng, (6,), 5)
     assert_same(j_mv(1.0, jA, jV, transpose_a=True),
                 t_mv(1.0, tA, tV, transpose_a=True))
-
-
-def test_multiply_chain_shim_matches():
-    (jA, tA), (jB, tB), ((jsi, tsi), _, _) = operands(50, ta=True)
-    from spsparse_tpu.ops import multiply_chain as j_chain
-    from spsparse_torch.ops import multiply_chain as t_chain
-    assert_same(j_chain(C=1.5, scalei=jsi, A=jA, tA="T", B=jB),
-                t_chain(C=1.5, scalei=tsi, A=tA, tA="T", B=tB))

@@ -6,6 +6,12 @@ through both packages; files written by either package load in the other.
 Tolerances: indices and counts exact; float32 products rtol 1e-6 (sums of
 a few products in another order); SpMV rtol/atol 2e-5; the 3-step chain
 rtol 1e-4 / atol 1e-6.
+
+The JAX package's consolidate and multiply chain run under ``jax.jit``
+(``port_refs``): eagerly they compiled every primitive anew at these
+shapes (36 s of set-up on one CPU worker; jitted, 6 s). Their capacities
+are the eager calls' (``tests/test_torch_multiply.py`` holds the jitted
+chain to the eager call).
 """
 
 import numpy as np
@@ -16,7 +22,6 @@ import spsparse_tpu as jsp
 import spsparse_torch as tsp
 from spsparse_tpu.io import load_netcdf as j_load, save_netcdf as j_save
 from spsparse_tpu.ops import best_spmv as j_best_spmv
-from spsparse_tpu.ops import multiply as j_multiply, multiply_mv as j_mv
 from spsparse_tpu.ops.pallas_dia_chain import spmv_dia_chain_pallas
 from spsparse_torch.convert import coo_to_numpy, tensor_to_numpy
 from spsparse_torch.io import load_netcdf as t_load, save_netcdf as t_save
@@ -24,6 +29,7 @@ from spsparse_torch.ops import (best_spmv as t_best_spmv, multiply as
                                 t_multiply, multiply_mv as t_mv,
                                 spmv_dia_chain)
 from port_threads import one_torch_thread  # noqa: F401 (autouse)
+import port_refs as refs
 
 N, BAND = 512, 3
 
@@ -67,9 +73,11 @@ def slice_run():
                      for _ in range(4))
     x = np.random.default_rng(1).uniform(-1, 1, N).astype(np.float32)
     out = {"vals": vals, "x": x}
-    for name, pkg, mult, mv in (("jax", jsp, j_multiply, j_mv),
-                                ("torch", tsp, t_multiply, t_mv)):
-        A = pkg.consolidate(build(pkg, (N, N), idx, vals, times=2))
+    for name, pkg, mult, mv, con in (
+            ("jax", jsp, refs.multiply, refs.multiply_mv,
+             refs.jit(jsp.consolidate)),
+            ("torch", tsp, t_multiply, t_mv, tsp.consolidate)):
+        A = con(build(pkg, (N, N), idx, vals, times=2))
         S = [build(pkg, (N,), np.arange(N)[:, None], s)
              for s in (si, sj, sk, v)]
         out[name] = {

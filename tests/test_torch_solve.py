@@ -729,16 +729,19 @@ def test_solve_path_rehearsal_matches_jax():
     def jmv(v):
         return j_spmv_dia(jS, v) + cs.SHIFT * v
 
+    # the JAX solves under jax.jit: one compile each, where eagerly every
+    # primitive of their set-up compiled at these shapes
     b = jnp.asarray(tensor_to_numpy(out["cg"]["b"]))
-    xj, _ = js.cg_solve(jmv, b, iters=cs.CG_ITERS)
+    xj, _ = jax.jit(lambda b: js.cg_solve(jmv, b, iters=cs.CG_ITERS))(b)
     xj = np.asarray(xj)
     np.testing.assert_allclose(tensor_to_numpy(out["cg"]["x"]), xj, rtol=0,
                                atol=1e-4 * np.abs(xj).max())
     blk = out["block"]
-    Xj, _ = js.cg_solve_mrhs(
-        lambda M: jax.vmap(jmv, in_axes=1, out_axes=1)(M),
-        jnp.asarray(tensor_to_numpy(blk["B"])), iters=cs.CG_ITERS,
-        minv=jnp.asarray(tensor_to_numpy(blk["minv"])))
+    Xj, _ = jax.jit(lambda B, minv: js.cg_solve_mrhs(
+        lambda M: jax.vmap(jmv, in_axes=1, out_axes=1)(M), B,
+        iters=cs.CG_ITERS, minv=minv))(
+        jnp.asarray(tensor_to_numpy(blk["B"])),
+        jnp.asarray(tensor_to_numpy(blk["minv"])))
     Xj = np.asarray(Xj)
     np.testing.assert_allclose(tensor_to_numpy(blk["X"]), Xj, rtol=0,
                                atol=1e-4 * np.abs(Xj).max())
