@@ -339,9 +339,9 @@ U2. ``utils.benchtime.bench_chained`` of ``y = spmv_dia_stream(prep, y)``
     (K1, CUDA events) and ``time_ms`` of the same call, in turns: the two
     must agree within 15%, and ``roofline(...)["pct_of_roofline"]`` must
     not pass 105.
-U3. NVTX: ``trace_scope`` pushes a range on the card (``_NVTX``); a probe
-    ``range_push`` inside a traced op's scope opens one level deeper than
-    outside it, and the depth is back after the op and after a raising
+U3. NVTX: with ``enable_ranges(True)``, ``trace_scope`` pushes a range on
+    the card (``_NVTX``); a probe ``range_push`` inside a traced op's scope
+    opens one level deeper than outside it, and the depth is back after the op and after a raising
     body (counted by wrappers around the real NVTX calls, and by NVTX's
     own return where a tool tracks it); the event log records the op and
     the nested ``spsparse.spmv``.
@@ -4258,7 +4258,8 @@ def phase_util_bench(torch, sp, dev, prep, x, u1):
 
 def phase_util_nvtx(torch, sp, dev, B, x):
     """U3: NVTX depth around a traced op's scope, after it and after a
-    raising body; the event log records the op.
+    raising body, with ranges on (``enable_ranges``; no profiler records
+    here); the event log records the op.
 
     NVTX reports a range's depth only to an attached tool (without one,
     ``range_push`` returns -2, "no push/pop tracking"), so the depth is
@@ -4295,6 +4296,7 @@ def phase_util_nvtx(torch, sp, dev, B, x):
         return probe(), sp.ops.spmv(B, x)
 
     sp.utils.enable_event_log(True)
+    T.enable_ranges(True)
     nvtx.range_push, nvtx.range_pop = push, pop
     try:
         d0 = probe()
@@ -4309,6 +4311,7 @@ def phase_util_nvtx(torch, sp, dev, B, x):
         ops = [e["op"] for e in sp.utils.get_event_log()]
     finally:
         nvtx.range_push, nvtx.range_pop = real_push, real_pop
+        T.enable_ranges(False)
         sp.utils.enable_event_log(False)
     sync(torch, dev)
     depths = {"outside": d0, "inside": d_in, "after": d_after,

@@ -62,7 +62,7 @@ _SIGNATURES = {
     "sps_dia_mrhs": [_I, _P, _LL, _LL, _LL, _I, _P, _I, _P, _LL, _P, _LL,
                      _P],
     "sps_dia_cg": [_I, _P, _LL, _LL, _I, _P, _F, _P, _P, _P, _LL, _P, _I,
-                   _P],
+                   _P, _P],
     "sps_dia_cg_geometry": [_I, _LL, _P],
     "sps_tiled_dense": [_I, _P, _P, _I, _I, _I, _P, _LL, _I, _P, _LL, _P],
     "sps_tiled_window": [_I, _P, _P, _P, _I, _I, _I, _P, _LL, _I, _P, _LL,

@@ -57,6 +57,14 @@
 // the owner uses, so it equals the owner's p bit for bit, and two exchanges
 // an iteration suffice. Chunks whose taps all stay in the CTA's rows take a
 // path with no bounds checks.
+//
+// Counters. Thread 0 of each CTA counts, by clock64() (the SM's cycles, so a
+// CTA's ratios need no clock rate), the cycles it spends waiting for the
+// slots of the p.Ap exchanges and of the r.r exchanges (the init's b.b sum
+// among them), and those from its entry to its exit, in shared memory. If
+// the launch is given a stats buffer, each CTA writes its three sums to its
+// own slot of it as it exits; otherwise nothing is written. Nothing else
+// differs, so x and rs are the same bit for bit with and without it.
 
 #include <cstdint>
 
@@ -78,6 +86,9 @@ constexpr int kPoll = 8;                        // slots a lane polls at once
 constexpr int kEdgeTaps = 4;                    // taps a batch off the interior
 constexpr long long kPrefetchBytes = 160 * 1024; // a CTA's L2 prefetch
 enum { kSlotPap = 32, kSlotRr = 33 };           // scratch slots of the sums
+// Scratch floats 36-41: thread 0's cycle counts (64 bits each): the p.Ap
+// and r.r waits, then the clock at entry.
+enum { kCycles = 36, kWaitPap = 0, kWaitRr = 1, kEntry = 2 };
 
 // A diagonal element with the streaming (evict-first) hint when live, else
 // 0: a predicated load, so that a batch of them issues with no branch.
@@ -132,6 +143,7 @@ struct CgArgs {
   unsigned long long* slot_pap;  // a CTA's (epoch, partial), one array a
   unsigned long long* slot_rr;   // reduction; all 0 on entry
   float* rs;                    // out: the final r.r
+  unsigned long long* stats;    // out, or null: 3 cycle counts a CTA
   float shift;
   int iters;
   int min_off, max_off;
@@ -170,11 +182,11 @@ constexpr unsigned long long kExchangeTimeoutNs = 20ull * 1000 * 1000 * 1000;
 // ones and a fence), and sums the partials in a fixed order (lane q adds
 // slots q, q + 32, ...; then a shuffle tree), the same in every CTA; the
 // CTA's barrier passes the ordering on to its other warps. Returns the sum
-// to every thread.
+// to every thread. Thread 0 adds its cycles in the loads to *wait.
 __device__ __forceinline__ float grid_sum(float part,
                                           unsigned long long* slots,
                                           unsigned epoch, float* scratch,
-                                          int slot) {
+                                          int slot, unsigned long long* wait) {
   const float total = block_sum(part, scratch);
   if (threadIdx.x == 0) {
     const unsigned long long w =
@@ -187,6 +199,7 @@ __device__ __forceinline__ float grid_sum(float part,
   if (threadIdx.x < 32) {
     const unsigned lane = threadIdx.x;
     const unsigned long long t0 = global_ns();
+    const long long c0 = clock64();
     float v = 0.f;
     for (unsigned q0 = 0; q0 < gridDim.x; q0 += 32 * kPoll) {
       unsigned long long w[kPoll];
@@ -214,6 +227,7 @@ __device__ __forceinline__ float grid_sum(float part,
         if (q0 + lane + 32 * i < gridDim.x)
           v += __uint_as_float((unsigned)w[i]);
     }
+    if (lane == 0) *wait += clock64() - c0;
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
     if (lane == 0) scratch[slot] = v;
@@ -309,6 +323,12 @@ __global__ void __launch_bounds__(kCgThreads, 1)
               const __grid_constant__ DiaOffsets offs) {
   extern __shared__ float4 smem4[];
   float* scratch = reinterpret_cast<float*>(smem4);
+  unsigned long long* cycles =
+      reinterpret_cast<unsigned long long*>(scratch + kCycles);
+  if (threadIdx.x == 0) {
+    cycles[kEntry] = clock64();
+    cycles[kWaitPap] = cycles[kWaitRr] = 0ull;
+  }
   const long long row0 = min(a.n, (long long)blockIdx.x * a.rows);
   const int nloc = (int)(min(a.n, row0 + a.rows) - row0);
   float *vp, *vr, *vx, *vap;
@@ -348,7 +368,8 @@ __global__ void __launch_bounds__(kCgThreads, 1)
     }
   }
   // Epochs: 1 for the init's sum, then 2 it + 2 (p.Ap), 2 it + 3 (r.r).
-  float rs = grid_sum(part, a.slot_rr, 1u, scratch, kSlotRr);
+  float rs = grid_sum(part, a.slot_rr, 1u, scratch, kSlotRr,
+                      cycles + kWaitRr);
   float beta = 0.f;
 
   for (int it = 0; it < a.iters; ++it) {
@@ -384,7 +405,8 @@ __global__ void __launch_bounds__(kCgThreads, 1)
     }
     prefetch_next(a.data, a.ld, row0, nloc, offs.k);
     const float pap =
-        grid_sum(part, a.slot_pap, 2u * it + 2u, scratch, kSlotPap);
+        grid_sum(part, a.slot_pap, 2u * it + 2u, scratch, kSlotPap,
+                 cycles + kWaitPap);
     const float alpha = rs / (pap == 0.f ? 1.f : pap);
     // x += alpha p; r -= alpha Ap; this CTA's share of r.r; publish.
     part = 0.f;
@@ -416,7 +438,8 @@ __global__ void __launch_bounds__(kCgThreads, 1)
       }
     }
     const float rsnew =
-        grid_sum(part, a.slot_rr, 2u * it + 3u, scratch, kSlotRr);
+        grid_sum(part, a.slot_rr, 2u * it + 3u, scratch, kSlotRr,
+                 cycles + kWaitRr);
     beta = rsnew / (rs == 0.f ? 1.f : rs);
     rs = rsnew;
   }
@@ -426,6 +449,12 @@ __global__ void __launch_bounds__(kCgThreads, 1)
       a.x[row0 + li] = vx[li];
   }
   if (blockIdx.x == 0 && threadIdx.x == 0) *a.rs = rs;
+  if (a.stats != nullptr && threadIdx.x == 0) {
+    unsigned long long* out = a.stats + 3 * blockIdx.x;
+    out[0] = cycles[kWaitPap];
+    out[1] = cycles[kWaitRr];
+    out[2] = clock64() - cycles[kEntry];
+  }
 }
 
 // Rows a CTA owns: ceil(n / G) rounded up to kRowAlign.
@@ -490,7 +519,7 @@ template <typename T>
 cudaError_t run(const void* data, long long ld, long long n,
                 const DiaOffsets& offs, float shift, const float* b, float* x,
                 float* scratch, long long scratch_len, float* rs, int iters,
-                cudaStream_t stream) {
+                cudaStream_t stream, unsigned long long* stats) {
   Geometry g;
   cudaError_t err = geometry<T>(n, &g);
   if (err != cudaSuccess) return err;
@@ -508,6 +537,7 @@ cudaError_t run(const void* data, long long ld, long long n,
   a.slot_rr = a.slot_pap + g.grid;
   a.vec = scratch + 2 * n + 4 * g.grid;
   a.rs = rs;
+  a.stats = stats;
   a.shift = shift;
   a.iters = iters;
   a.min_off = a.max_off = 0;
@@ -560,13 +590,16 @@ int sps_dia_cg_geometry(int dtype, long long n, void* out) {
 // DIA form, as one cooperative launch on the caller's stream. dtype: 0 =
 // float32 data, 1 = bfloat16 data. b and x hold n floats; scratch holds at
 // least the floats sps_dia_cg_geometry reports (its slot arrays are zeroed
-// here, on the stream); rs receives the final r.r (one float).
+// here, on the stream); rs receives the final r.r (one float). stats is null
+// or holds 3 x grid 64-bit counts, which each CTA writes as it exits: its
+// cycles waiting in the p.Ap exchanges, in the r.r exchanges, and from its
+// entry to its exit.
 // A launch the card refuses (a grid that cannot be co-resident, too much
 // shared memory) returns its error; nothing else is tried.
 int sps_dia_cg(int dtype, const void* data, long long ld, long long n, int K,
                const void* offsets, float shift, const void* b, void* x,
                void* scratch, long long scratch_len, void* rs, int iters,
-               void* stream) {
+               void* stream, void* stats) {
   DiaOffsets offs;
   if (!sps::make_offsets(K, offsets, &offs) || iters < 0 || n <= 0)
     return (int)cudaErrorInvalidValue;
@@ -575,13 +608,14 @@ int sps_dia_cg(int dtype, const void* data, long long ld, long long n, int K,
   float* xx = static_cast<float*>(x);
   float* ss = static_cast<float*>(scratch);
   float* out_rs = static_cast<float*>(rs);
+  unsigned long long* st = static_cast<unsigned long long*>(stats);
   cudaError_t err;
   if (dtype == 0)
     err = run<float>(data, ld, n, offs, shift, bb, xx, ss, scratch_len,
-                     out_rs, iters, s);
+                     out_rs, iters, s, st);
   else if (dtype == 1)
     err = run<__nv_bfloat16>(data, ld, n, offs, shift, bb, xx, ss,
-                             scratch_len, out_rs, iters, s);
+                             scratch_len, out_rs, iters, s, st);
   else
     return (int)cudaErrorInvalidValue;
   if (err != cudaSuccess) return (int)err;

@@ -47,7 +47,7 @@ from ..core.consolidate import filter_compact
 from ..core.construct import coo_filter
 from ..core.coo import SparseCOO, numpy_dtype, operand_tensor
 from ..core.errors import SpSparseError
-from ..utils.trace import log_event
+from ..utils.trace import log_event, traced
 from .semiring import (MIN_PLUS, RelaxPlan, _check_square, edge_arrays,
                        live_edges, relax_columns, segment_reduce)
 
@@ -155,6 +155,7 @@ def _set_sources(pred: Tensor, sources: Tensor) -> Tensor:
     return pred
 
 
+@traced("spsparse.bellman_ford")
 def bellman_ford(a, sources, *, directed: bool = True,
                  unweighted: bool = False, return_predecessors: bool = False,
                  maxiter: int | None = None):
@@ -176,6 +177,9 @@ def bellman_ford(a, sources, *, directed: bool = True,
     (then ``directed``/``unweighted`` are baked in and must be left at
     their defaults): the scatter-free layout for iterated solves on the
     same graph, a gather plus a reduction over K a round.
+
+    Runs in the ``spsparse.bellman_ford`` scope; its loop logs its rounds
+    and host syncs as ``graph.bellman_ford``.
     """
     if isinstance(a, RelaxPlan):
         if not directed or unweighted:

@@ -45,6 +45,7 @@ from typing import NamedTuple
 import torch
 
 from .. import backend
+from ..utils.trace import event_log_on, trace_scope
 from .dia_stream import (_DTYPE_CODE, PreparedDIA, check_operands,
                          launch_args, prepare_dia, spmv_dia_stream_reference)
 
@@ -169,31 +170,54 @@ def cg_solve_dia(dia, b: Tensor, *, iters: int,
 
     CUDA tensors run kernel K4, one counted cooperative launch per solve;
     CPU tensors take :func:`cg_solve_dia_reference`.
+
+    Runs in the ``spsparse.cg_solve_dia`` scope. Its event record holds
+    ``iters`` and ``mode`` (``resident`` or ``device_memory``, the
+    kernel's; ``reference`` on the CPU) and, on the card, ``grid`` (CTAs)
+    and ``cycles``: an int64 ``(grid, 3)`` tensor on the device that K4
+    fills as it exits, each CTA's SM cycles waiting in the p.Ap exchanges,
+    in the r.r exchanges (the init's sum of b.b included) and from its
+    entry to its exit. The counts are taken only while the log is on and
+    are read whenever the caller likes: nothing waits for them.
     """
+    iters = int(iters)
+    with trace_scope("spsparse.cg_solve_dia", iters=iters) as rec:
+        return _cg_solve(dia, b, iters, shift, rec)
+
+
+def _cg_solve(dia, b: Tensor, iters: int, shift: float,
+              rec: dict) -> tuple[Tensor, Tensor]:
     prep = dia if isinstance(dia, PreparedDIA) else prepare_dia(dia)
     n, m = prep.shape
     if n != m:
         raise ValueError(f"CG needs a square operator, got {(n, m)}")
-    iters = int(iters)
     if iters < 0:
         raise ValueError(f"iters must be >= 0, got {iters}")
     b = check_operands(prep, b)
     if b.device.type == "cpu":
+        rec["mode"] = "reference"
         return cg_solve_dia_reference(prep, b, iters=iters, shift=shift)
     dev = b.device
     if n == 0:
         return torch.empty(0, device=dev), torch.zeros((), device=dev)
     code, offs = launch_args(prep)
     geo = cg_kernel_geometry(n, prep.data.dtype, dev)
+    rec.update(mode="resident" if geo.resident else "device_memory",
+               grid=geo.grid)
     x = torch.empty(n, dtype=torch.float32, device=dev)
     rs = torch.empty((), dtype=torch.float32, device=dev)
     scratch = torch.empty(geo.scratch_floats, dtype=torch.float32,
                           device=dev)
+    cycles = None
+    if event_log_on():
+        cycles = rec["cycles"] = torch.empty((geo.grid, 3),
+                                             dtype=torch.int64, device=dev)
     err = backend.load_kernels().sps_dia_cg(
         code, prep.data.data_ptr(), prep.data.stride(0), n,
         len(prep.offsets), ctypes.cast(offs, ctypes.c_void_p), float(shift),
         b.data_ptr(), x.data_ptr(), scratch.data_ptr(), scratch.numel(),
-        rs.data_ptr(), iters, backend.current_stream(dev))
+        rs.data_ptr(), iters, backend.current_stream(dev),
+        None if cycles is None else cycles.data_ptr())
     backend.check(err, "sps_dia_cg")
     cg_solve_dia.launches += 1
     return x, rs

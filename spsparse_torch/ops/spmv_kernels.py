@@ -26,6 +26,7 @@ from ..core.coo import operand_tensor
 from ..core.dia import SparseDIA
 from ..core.structure import SparseELL
 from ..core.tiled import SparseTiledCOO
+from ..utils.trace import trace_scope
 from .dia_stream import PreparedDIA, spmv_dia_stream
 from .general import PreparedGeneral, spmm_general, spmv_general
 from .spmm import (_gather_rows, spmm as _spmm_generic, spmm_bsr,
@@ -61,6 +62,21 @@ def spmv_ell(ell: SparseELL, x: Tensor) -> Tensor:
     return (ell.vals * xg.reshape(ell.cols.shape)).sum(dim=1)
 
 
+def _spmv_route(a):
+    """``(path, function)`` of :func:`best_spmv`'s route for ``a``."""
+    if isinstance(a, SparseDIA) and a.data.dtype == torch.float64:
+        return "dia_f64", spmv_dia
+    if isinstance(a, (SparseDIA, PreparedDIA)):
+        return "dia_stream", spmv_dia_stream
+    if isinstance(a, PreparedShuffleSpMV):
+        return "shuffle", spmv_shuffle
+    if isinstance(a, PreparedGeneral):
+        return "general", spmv_general
+    if isinstance(a, SparseELL):
+        return "ell", spmv_ell
+    return "generic", _spmv_generic
+
+
 def best_spmv(a, x: Tensor) -> Tensor:
     """Format-dispatched SpMV. A float64 :class:`SparseDIA` goes to
     :func:`spmv_dia` (float64 result, the JAX package's route for it off
@@ -68,18 +84,12 @@ def best_spmv(a, x: Tensor) -> Tensor:
     operands to kernel K1 (float32 result); a :class:`PreparedShuffleSpMV`
     to :func:`spmv_shuffle` (K11, float32); a :class:`PreparedGeneral` to
     :func:`spmv_general`; ELL to :func:`spmv_ell`; CSR/COO to the generic
-    CSR path."""
-    if isinstance(a, SparseDIA) and a.data.dtype == torch.float64:
-        return spmv_dia(a, x)
-    if isinstance(a, (SparseDIA, PreparedDIA)):
-        return spmv_dia_stream(a, x)
-    if isinstance(a, PreparedShuffleSpMV):
-        return spmv_shuffle(a, x)
-    if isinstance(a, PreparedGeneral):
-        return spmv_general(a, x)
-    if isinstance(a, SparseELL):
-        return spmv_ell(a, x)
-    return _spmv_generic(a, x)
+    CSR path. Runs in the ``spsparse.best_spmv`` scope, whose event record
+    names the route as ``path`` (``dia_f64``, ``dia_stream``, ``shuffle``,
+    ``general``, ``ell`` or ``generic``)."""
+    path, fn = _spmv_route(a)
+    with trace_scope("spsparse.best_spmv", path=path):
+        return fn(a, x)
 
 
 def best_spmm(a, X: Tensor) -> Tensor:

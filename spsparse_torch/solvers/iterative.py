@@ -21,6 +21,8 @@ from typing import Callable
 
 import torch
 
+from ..utils.trace import trace_scope
+
 Tensor = torch.Tensor
 MatVec = Callable[[Tensor], Tensor]
 
@@ -91,25 +93,28 @@ def pcg_solve(matvec: MatVec, b: Tensor, *, iters: int,
               x0: Tensor | None = None) -> tuple[Tensor, Tensor]:
     """Preconditioned CG: ``minv`` is the preconditioner application —
     a dense vector (Jacobi: elementwise ``1/diag(A)``) or a callable
-    ``z = M^{-1} r``. Plain CG when ``minv`` is None."""
-    if minv is None:
-        return cg_solve(matvec, b, iters=iters, x0=x0)
-    apply_m = _apply_m(minv)
-    x = torch.zeros_like(b) if x0 is None else x0
-    r = b - matvec(x)
-    p = apply_m(r)
-    rz = _dot(r, p)
-    for _ in range(int(iters)):
-        Ap = matvec(p)
-        alpha = rz / _nonzero(_dot(p, Ap))
-        x = x + alpha * p
-        r = r - alpha * Ap
-        z = apply_m(r)
-        rz_new = _dot(r, z)
-        beta = rz_new / _nonzero(rz)
-        p = z + beta * p
-        rz = rz_new
-    return x, _dot(r, r)
+    ``z = M^{-1} r``. Plain CG when ``minv`` is None. Runs in the
+    ``spsparse.pcg_solve`` scope; its event record holds ``iters``."""
+    iters = int(iters)
+    with trace_scope("spsparse.pcg_solve", iters=iters):
+        if minv is None:
+            return cg_solve(matvec, b, iters=iters, x0=x0)
+        apply_m = _apply_m(minv)
+        x = torch.zeros_like(b) if x0 is None else x0
+        r = b - matvec(x)
+        p = apply_m(r)
+        rz = _dot(r, p)
+        for _ in range(iters):
+            Ap = matvec(p)
+            alpha = rz / _nonzero(_dot(p, Ap))
+            x = x + alpha * p
+            r = r - alpha * Ap
+            z = apply_m(r)
+            rz_new = _dot(r, z)
+            beta = rz_new / _nonzero(rz)
+            p = z + beta * p
+            rz = rz_new
+        return x, _dot(r, r)
 
 
 def cg_solve_mrhs(matmat: MatVec, B: Tensor, *, iters: int,

@@ -7,11 +7,15 @@ The traffic models must give the JAX package's integers exactly, and
 checks must give the checkified JAX checks' verdicts and message text on
 one battery of containers (one jitted checkify a checked function).
 ``trace_scope``'s NVTX ranges are held balanced through a stand-in NVTX
-module; the CPU build's NVTX (which raises) is never called.
+module; the CPU build's NVTX (which raises) is never called. The hot entry
+points' scopes (no JAX): no range while nothing records, ``spsparse.*``
+ranges under ``torch.profiler`` with each record's ``t_ns`` inside its
+range, and the records' fields.
 """
 
 import dataclasses
 import importlib
+import json
 
 import jax
 import jax.numpy as jnp
@@ -24,6 +28,7 @@ import spsparse_tpu as jsp
 import spsparse_torch as tsp
 from spsparse_tpu.core import validate as jval
 from spsparse_tpu.utils import benchtime as jbench
+from spsparse_torch.convert import dia_from_numpy
 from spsparse_torch.core import validate as tval
 from spsparse_torch.utils import benchtime as tbench
 from spsparse_torch.utils import trace as ttrace
@@ -218,6 +223,7 @@ def test_nvtx_not_used_on_the_cpu_build(monkeypatch):
 
 def test_nvtx_ranges_balanced(monkeypatch):
     fake = _fake_nvtx(monkeypatch, True)
+    ttrace.enable_ranges(True)
     tsp.utils.enable_event_log(True)
     try:
         with ttrace.trace_scope("outer"):
@@ -238,6 +244,7 @@ def test_nvtx_ranges_balanced(monkeypatch):
         log = [e["op"] for e in tsp.utils.get_event_log()]
     finally:
         tsp.utils.enable_event_log(False)
+        ttrace.enable_ranges(False)
     pushes = [c[1] for c in fake.calls if c[0] == "push"]
     assert pushes[:4] == ["outer", "probe", "inner", "raises"]
     assert "traced_op" in pushes and "spsparse.spmv" in pushes
@@ -245,6 +252,150 @@ def test_nvtx_ranges_balanced(monkeypatch):
     # The raising body is in no event record; the others are.
     assert "raises" not in log
     assert {"outer", "inner", "traced_op", "spsparse.spmv"} <= set(log)
+
+
+# --------------------------------------------------------------------------
+# trace: scopes of the hot entry points
+# --------------------------------------------------------------------------
+HOT = ("spsparse.best_spmv", "spsparse.pcg_solve", "spsparse.cg_solve_dia",
+       "spsparse.bellman_ford")
+
+
+def _band(n=64, dtype=np.float32):
+    """A float SPD tridiagonal (4 on the diagonal, -1 beside it)."""
+    data = np.stack([np.full(n, -1.0), np.full(n, 4.0), np.full(n, -1.0)])
+    data[0, 0] = data[2, -1] = 0.0
+    return dia_from_numpy(data.astype(dtype), (-1, 0, 1), (n, n),
+                          device="cpu")
+
+
+def _hot_calls():
+    """One tiny call of each hot entry point, on the CPU."""
+    prep = tsp.ops.prepare_dia(_band())
+    b = torch.linspace(-1.0, 1.0, 64)
+    tsp.ops.best_spmv(prep, b)
+    tsp.solvers.pcg_solve(lambda v: tsp.ops.best_spmv(prep, v), b, iters=3,
+                          minv=torch.full((64,), 0.25))
+    tsp.ops.cg_solve_dia(prep, b, iters=3)
+    g = tsp.SparseCOO.from_dense(np.diag(np.ones(7), 1), device="cpu")
+    tsp.graph.bellman_ford(g, [0])
+
+
+class _CountingRange:
+    entered = 0
+
+    def __init__(self, name):
+        pass
+
+    def __enter__(self):
+        _CountingRange.entered += 1
+
+    def __exit__(self, *exc):
+        return False
+
+
+def test_scopes_off_path_calls_no_range(monkeypatch):
+    """No profiler recording and ranges off: no ``record_function`` and no
+    NVTX call, with the event log off or on; with ranges on, both."""
+    monkeypatch.setattr(_CountingRange, "entered", 0)
+    monkeypatch.setattr(torch.profiler, "record_function", _CountingRange)
+    fake = _fake_nvtx(monkeypatch, True)
+    with ttrace.trace_scope("off"):
+        pass
+    tsp.utils.enable_event_log(True)
+    try:
+        _hot_calls()
+        assert {e["op"] for e in tsp.utils.get_event_log()} >= set(HOT)
+        assert _CountingRange.entered == 0 and fake.calls == []
+        ttrace.enable_ranges(True)
+        with ttrace.trace_scope("on"):
+            pass
+    finally:
+        ttrace.enable_ranges(False)
+        tsp.utils.enable_event_log(False)
+    assert _CountingRange.entered == 1
+    assert fake.calls == [("push", "on"), ("pop",)]
+
+
+def test_hot_scopes_under_the_profiler(tmp_path):
+    """Under ``torch.profiler`` each hot entry point is a ``spsparse.*``
+    range of the Chrome trace, and each of its log records starts inside
+    its range (``t_ns`` on the trace's clock, within 1 ms)."""
+    tsp.utils.enable_event_log(True)
+    try:
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            _hot_calls()
+        log = [e for e in tsp.utils.get_event_log() if e["op"] in HOT]
+    finally:
+        tsp.utils.enable_event_log(False)
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    trace = json.loads((tmp_path / "trace.json").read_text())
+    base = trace.get("baseTimeNanoseconds", 0)
+    ranges = [(e["name"], base + 1000 * e["ts"],
+               base + 1000 * (e["ts"] + e["dur"]))
+              for e in trace["traceEvents"] if e.get("ph") == "X"
+              and e.get("cat") == "user_annotation"
+              and e["name"] in HOT]
+    assert {r[0] for r in ranges} == set(HOT)
+    assert sorted(e["op"] for e in log) == sorted(r[0] for r in ranges)
+    slack = 1_000_000
+    for e in log:
+        assert any(name == e["op"] and s0 - slack <= e["t_ns"] <= s1 + slack
+                   for name, s0, s1 in ranges), e
+
+
+def _spmv_operand(path):
+    dense = np.diag(np.full(16, 2.0)) + np.diag(np.ones(15), 1)
+    coo = tsp.SparseCOO.from_dense(dense.astype(np.float32), device="cpu")
+    return {"dia_f64": lambda: _band(16, np.float64),
+            "dia_stream": lambda: tsp.ops.prepare_dia(_band(16)),
+            "shuffle": lambda: tsp.ops.prepare_shuffle_spmv(coo),
+            "general": lambda: tsp.ops.prepare_general(coo),
+            "ell": lambda: tsp.to_ell(coo),
+            "generic": lambda: coo}[path]()
+
+
+@pytest.mark.parametrize("path", ["dia_f64", "dia_stream", "shuffle",
+                                  "general", "ell", "generic"])
+def test_best_spmv_record_names_its_path(path):
+    a = _spmv_operand(path)
+    tsp.utils.enable_event_log(True)
+    try:
+        tsp.ops.best_spmv(a, torch.ones(16, dtype=torch.float64
+                                        if path == "dia_f64" else None))
+        log = [e for e in tsp.utils.get_event_log()
+               if e["op"] == "spsparse.best_spmv"]
+    finally:
+        tsp.utils.enable_event_log(False)
+    assert len(log) == 1
+    rec = log[0]
+    assert set(rec) == {"op", "host_s", "t_ns", "path"}
+    assert rec["path"] == path and rec["host_s"] >= 0
+
+
+def test_hot_records_fields():
+    """``iters`` and ``mode`` of the solves, and the Bellman-Ford scope
+    beside its loop's untouched ``graph.bellman_ford`` record."""
+    tsp.utils.enable_event_log(True)
+    try:
+        _hot_calls()
+        log = tsp.utils.get_event_log()
+    finally:
+        tsp.utils.enable_event_log(False)
+    by = {}
+    for e in log:
+        by.setdefault(e["op"], []).append(e)
+    assert [e["path"] for e in by["spsparse.best_spmv"]] == ["dia_stream"] * 5
+    (pcg,), (cg,), (bf,) = (by[k] for k in HOT[1:])
+    assert pcg["iters"] == 3 and set(pcg) == {"op", "host_s", "t_ns",
+                                              "iters"}
+    assert cg["iters"] == 3 and cg["mode"] == "reference" and set(cg) == {
+        "op", "host_s", "t_ns", "iters", "mode"}
+    assert set(bf) == {"op", "host_s", "t_ns"}
+    assert by["graph.bellman_ford"] == [{"op": "graph.bellman_ford",
+                                         "rounds": 8, "syncs": 7}]
+    assert not any("route" in e for e in log)
 
 
 # --------------------------------------------------------------------------

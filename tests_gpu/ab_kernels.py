@@ -270,6 +270,8 @@ TWO_PASS_K4 = [ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
                ctypes.c_float] + [ctypes.c_void_p] * 7 + [
     ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
     ctypes.c_void_p]
+# The persistent K4's C signature before its cycle counters (no stats).
+NO_STATS_K4 = backend._SIGNATURES["sps_dia_cg"][:-1]
 
 
 def build(tmp: Path, other: Path | None, sources: set) -> dict:
@@ -309,12 +311,14 @@ def build(tmp: Path, other: Path | None, sources: set) -> dict:
         text = path.read_text()
         two_pass = (src == "dia_cg.cu" and "cg_pass_a" in text
                     or src == "segsum.cu" and "int group" in text)
+        no_stats = src == "dia_cg.cu" and "void* stats" not in text
         for fn in ENTRY_POINTS[src]:
             if two_pass and fn == "sps_dia_cg_geometry":
                 continue
             getattr(lib, fn).argtypes = (
                 TWO_PASS_K4 if two_pass and fn == "sps_dia_cg"
                 else GROUP_K10 if two_pass and fn == "sps_segsum"
+                else NO_STATS_K4 if no_stats and fn == "sps_dia_cg"
                 else backend._SIGNATURES[fn])
         libs.setdefault(name, {})[src] = (lib, log, two_pass)
     return libs
@@ -350,11 +354,13 @@ def k4_call(lib, two_pass: bool, prep, b):
                 code, n, ctypes.cast(geo, ctypes.c_void_p)),
                 "sps_dia_cg_geometry")
             scratch = torch.empty(geo[5], device=dev)
+            stats = (None,) * (len(lib.sps_dia_cg.argtypes)
+                               - len(NO_STATS_K4))
             err = lib.sps_dia_cg(
                 code, prep.data.data_ptr(), prep.data.stride(0), n,
                 len(prep.offsets), offs_p, cs.SHIFT, b.data_ptr(),
                 x.data_ptr(), scratch.data_ptr(), scratch.numel(),
-                scal.data_ptr(), iters, stream)
+                scal.data_ptr(), iters, stream, *stats)
         backend.check(err, "sps_dia_cg")
         return x, scal[0]
     return run

@@ -23,7 +23,11 @@ bit. The counters, per CTA and iteration:
 Prints one JSON line a case: cycles per CTA and iteration, the SM clock
 nvidia-smi reports, the time of an iteration of the instrumented copy and
 of the repository's kernel by CUDA events (``chip_smoke.per_iteration_ms``)
-and the card's name and power limit.
+and the card's name and power limit. Beside them, the repository's kernel's
+own counters of the same solve (the ``cycles`` of its event record, per
+CTA and iteration) and the share of the exchange waits in each: the
+probe's ``wait for the slots`` over its five phases, the kernel's two
+waits over its entry to exit.
 """
 
 from __future__ import annotations
@@ -45,6 +49,8 @@ import chip_smoke as cs  # noqa: E402
 from spsparse_torch import backend  # noqa: E402
 from spsparse_torch.ops import cg_solve_dia  # noqa: E402
 from spsparse_torch.ops.dia_cg import cg_kernel_geometry  # noqa: E402
+from spsparse_torch.utils.trace import (enable_event_log,  # noqa: E402
+                                        get_event_log)
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from ab_kernels import k4_call  # noqa: E402
@@ -169,6 +175,14 @@ def main() -> int:
             grid = cg_kernel_geometry(n).grid
             per = {name: cyc[i] / (grid * ITERS)
                    for i, name in enumerate(NAMES)}
+            enable_event_log(True)
+            try:
+                cg_solve_dia(prep, b, iters=ITERS, shift=cs.SHIFT)
+                rec = get_event_log()[-1]
+            finally:
+                enable_event_log(False)
+            pap, rr, total = rec["cycles"].sum(0).tolist()
+            own = {"p.Ap wait": pap, "r.r wait": rr, "entry to exit": total}
             ms = cs.per_iteration_ms(torch, {
                 "instrumented": copy,
                 "kernel": lambda it: cg_solve_dia(prep, b, iters=it,
@@ -177,6 +191,12 @@ def main() -> int:
                 "case": f"K4 f32, n = {n}", "grid": grid, "iterations": ITERS,
                 "cycles_per_cta_iteration": per,
                 "exchange_parts_are_summed_over_both_exchanges": True,
+                "kernel_counters_per_cta_iteration": {
+                    k: v / (grid * ITERS) for k, v in own.items()},
+                "wait_pct": {
+                    "probe": 100 * per["wait for the slots"]
+                    / sum(per[k] for k in NAMES[:5]),
+                    "kernel": 100 * (pap + rr) / total},
                 "sm_clock_mhz_now_max": sm_clock(),
                 "instrumented_ms_per_iteration": ms["instrumented"],
                 "kernel_ms_per_iteration": ms["kernel"],
